@@ -16,6 +16,12 @@ residual join is scaled by ``skip_scale`` and cast to ``dtype``;
 nearest x2 then a 3x3 conv; the skip list is consumed deepest-first;
 qkv has no bias and proj has one; MVAttention attends over the V views
 passed in, not a hard-coded 4.
+
+Training: gradients reach the f32 parameters through the casts to the
+compute dtype; attention goes through ``mha``, whose backward is kernel
+K1ᵇ. ``remat=True`` recomputes each down/mid/up block in the backward
+(``torch.utils.checkpoint``), the counterpart of ``unet_remat``
+(``lgm_tpu/models/unet.py``): it changes memory, never the numbers.
 """
 
 from __future__ import annotations
@@ -27,7 +33,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from lgm_tpu_torch.ops.mha import mha_fwd
+from torch.utils.checkpoint import checkpoint
+
+from lgm_tpu_torch.ops.mha import mha
 
 
 def use_full_float32() -> None:
@@ -70,8 +78,8 @@ class _Attention(nn.Module):
 
 class MVAttention(nn.Module):
     """Cross-view self-attention: [B*V, C, H, W] -> attention over all
-    V*H*W tokens of a scene (ref: core/unet.py:11-49), through ``mha_fwd``
-    (kernel K1 on the card)."""
+    V*H*W tokens of a scene (ref: core/unet.py:11-49), through ``mha``
+    (kernels K1 and K1ᵇ on the card)."""
 
     def __init__(self, channels: int, num_heads: int = 16,
                  skip_scale: float = 1.0, dtype=torch.bfloat16):
@@ -96,7 +104,7 @@ class MVAttention(nn.Module):
                 B * nh, S, hd).contiguous()
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-        o = mha_fwd(q, k, v, hd ** -0.5)
+        o = mha(q, k, v, hd ** -0.5)
         o = o.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, C)
         o = _linear(self.attn.proj, o, self.dtype)
         o = o.reshape(BV, H, W, C).permute(0, 3, 1, 2)
@@ -229,9 +237,10 @@ class UNet(nn.Module):
                  up_attention=(True, True, True, False),
                  layers_per_block: int = 2,
                  skip_scale: float = math.sqrt(0.5),
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.conv_in = nn.Conv2d(in_channels, down_channels[0], 3, padding=1)
         # Channels of the skip stack, built as forward() builds the tensors.
         stack = [down_channels[0]]
@@ -257,16 +266,22 @@ class UNet(nn.Module):
         self.norm_out = nn.GroupNorm(32, up_channels[-1], eps=1e-5)
         self.conv_out = nn.Conv2d(up_channels[-1], out_channels, 3, padding=1)
 
+    def _block(self, blk, *args):
+        """Run one block, recomputed in the backward under ``remat``."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
+
     def forward(self, x: torch.Tensor, num_views: int) -> torch.Tensor:
         x = _conv(self.conv_in, x, self.dtype)
         xss = [x]
         for blk in self.down_blocks:
-            x, skips = blk(x, num_views)
+            x, skips = self._block(blk, x, num_views)
             xss.extend(skips)
-        x = self.mid_block(x, num_views)
+        x = self._block(self.mid_block, x, num_views)
         for blk in self.up_blocks:
             n = len(blk.nets)
             skips, xss = xss[-n:], xss[:-n]
-            x = blk(x, skips, num_views)
+            x = self._block(blk, x, skips, num_views)
         x = F.silu(_gn(self.norm_out, x).to(self.dtype))
         return _conv(self.conv_out, x, torch.float32)

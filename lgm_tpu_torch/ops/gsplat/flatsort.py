@@ -1,28 +1,33 @@
-"""Flat-sort Gaussian rasterizer: host-side binning and kernel K2.
+"""Flat-sort Gaussian rasterizer: host-side binning and kernels K2, K2ᵇ.
 
-Port of ``lgm_tpu/ops/gsplat/flatsort.py``'s forward path. Per view:
+Port of ``lgm_tpu/ops/gsplat/flatsort.py``. Per view:
 
 1. ``project_gaussians`` (plain PyTorch, SoA).
-2. ``_flat_binning``: each active splat enumerates 2*dup candidate tiles
+2. ``_flat_binning`` on the projection without gradient (as lgm_tpu's
+   ``stop_gradient``): each active splat enumerates 2*dup candidate tiles
    over its exact ellipse AABB, drops provably-zero (splat, tile) pairs by
    the conic-vs-tile test, keeps its first ``dup`` live tiles; keys
    ``tile_id * N + depth_rank`` sorted once group the entries per tile
    front to back; each tile keeps its first MPT (nearest) entries.
 3. The slot gather: per-Gaussian rows (x̄, ȳ, A, B, C, op, r, g, b[, z])
-   in depth-rank order plus a zero pad row, gathered per slot; dead slots
-   point at the pad row. The port's slot layout is ``[T, MPT, R]``
-   slot-major (the gather output itself, coalesced for the kernel).
-4. ``composite_fwd``: kernel K2 (``csrc/composite_fwd.cu``) on a CUDA
-   tensor, its plain version ``composite_reference`` on a CPU tensor.
+   in depth-rank order (``_PermuteRows``; its gradient is the inverse
+   gather) plus a zero pad row, gathered per slot (``_GatherRows``; its
+   gradient is a scatter-add onto the rank rows, the pad row's share
+   dropped); dead slots point at the pad row. The port's slot layout is
+   ``[T, MPT, R]`` slot-major (the gather output itself, coalesced for
+   the kernels).
+4. ``composite``: kernel K2 (``csrc/composite_fwd.cu``) forward and K2ᵇ
+   (``csrc/composite_bwd.cu``) backward on CUDA tensors, their plain
+   versions ``composite_reference`` / ``composite_bwd_reference`` on CPU
+   tensors. The backward saves params, counts and the output, as
+   ``_cf_fwd`` does.
 5. ``_pack_output``: [T, 8, P] -> image / alpha / depth.
 
 Traps kept from the JAX module: the depth argsort is stable (as
 ``jnp.argsort``); the per-row sort of the [N, 2*dup] candidates keeps
 the first ``dup``; ``counts`` is capped at MPT; ``T * N < 2**31`` is
-required, as lgm_tpu's int32 keys require it.
-
-Forward only: the backward kernel and the scatter-add VJP arrive with
-the training slice, so a CUDA input that requires grad raises.
+required, as lgm_tpu's int32 keys require it; the backward replays the
+forward's tile-wide early-out, so it differentiates the same function.
 """
 
 from __future__ import annotations
@@ -52,12 +57,20 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
 }
+_BWD_SIGNATURES = {
+    "composite_bwd_f32": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
+}
 
 
 class FlatBins(NamedTuple):
     flat_rank: torch.Tensor  # [T*MPT] depth rank per slot (N = dead pad)
     counts: torch.Tensor     # [T] valid entries per tile (int32)
     order: torch.Tensor      # [N] gaussian id per depth rank
+    rank: torch.Tensor       # [N] depth rank per gaussian (order's inverse)
 
 
 def _mpt(max_per_tile: int) -> int:
@@ -155,7 +168,7 @@ def _flat_binning(proj, tiles_y: int, tiles_x: int, tile_h: int,
     tvec = torch.arange(T, device=dev)
     flat_rank = torch.where(live, keys_t - (tvec * N)[:, None],
                             torch.full_like(keys_t, N)).reshape(-1)
-    return FlatBins(flat_rank, counts.to(torch.int32), order)
+    return FlatBins(flat_rank, counts.to(torch.int32), order, rank)
 
 
 def _prepare_view(gaussians, view, image_size, tan_half_fov,
@@ -177,15 +190,50 @@ def _prepare_view(gaussians, view, image_size, tan_half_fov,
 
     proj = project_gaussians(gaussians, view, S, tan_half_fov,
                              scale_modifier)
-    meta = _flat_binning(proj, tiles_y, tiles_x, tile_h, tile_w, dup,
-                         max_per_tile)
+    with torch.no_grad():
+        meta = _flat_binning(proj, tiles_y, tiles_x, tile_h, tile_w, dup,
+                             max_per_tile)
     attrs_t = proj.attrs_t
     if with_depth:
         attrs_t = torch.cat([attrs_t, proj.depth[None]], dim=0)
-    attrs = attrs_t.T[meta.order]                      # depth-rank rows
+    attrs = _PermuteRows.apply(attrs_t.T, meta.order, meta.rank)
     attrs = torch.cat([attrs, torch.zeros_like(attrs[:1])], dim=0)
-    params = attrs[meta.flat_rank].reshape(T, MPT, attrs.shape[1])
-    return params, meta.counts
+    params = _GatherRows.apply(attrs, meta.flat_rank)
+    return params.reshape(T, MPT, attrs.shape[1]), meta.counts
+
+
+class _PermuteRows(torch.autograd.Function):
+    """x[perm] whose gradient is the inverse gather g[inv_perm]
+    (``_permute_rows``): a permutation needs no scatter."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv_perm):
+        ctx.save_for_backward(inv_perm)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        inv_perm, = ctx.saved_tensors
+        return g[inv_perm], None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """attrs_pad [N+1, R] -> per-slot rows [T*MPT, R] (``_gather_entries``).
+    The gradient is one scatter-add (``index_add_``) back onto the rank
+    rows; dead slots carry index N, the pad row, whose share is dropped."""
+
+    @staticmethod
+    def forward(ctx, attrs_pad, flat_rank):
+        ctx.save_for_backward(flat_rank)
+        ctx.n_pad = attrs_pad.shape[0]
+        return attrs_pad[flat_rank]
+
+    @staticmethod
+    def backward(ctx, g):
+        flat_rank, = ctx.saved_tensors
+        d = torch.zeros(ctx.n_pad, g.shape[1], dtype=g.dtype,
+                        device=g.device)
+        return d.index_add_(0, flat_rank, g), None
 
 
 def _composite_plain(params, counts, tile_h, tile_w, tiles_x):
@@ -262,23 +310,13 @@ def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
         return composite_reference(params, counts, tile_h, tile_w, tiles_x)
     if params.device.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {params.device}")
-    if params.requires_grad:
+    if torch.is_grad_enabled() and params.requires_grad:
         raise NotImplementedError(
-            "composite_fwd is forward-only: its backward kernel arrives with "
-            "the training slice (run under torch.inference_mode())")
+            "composite_fwd has no gradient of its own: call composite(), "
+            "whose backward is K2ᵇ")
     T, MPT, R = params.shape
     P = tile_h * tile_w
-    if (params.dtype != torch.float32 or not params.is_contiguous()
-            or R not in (9, 10) or P > 1024 or MPT % G_CHUNK):
-        raise ValueError(
-            f"composite_fwd kernel takes contiguous f32 params [T, MPT, R] "
-            f"with R in (9, 10), MPT % {G_CHUNK} == 0 and at most 1024 "
-            f"pixels per tile; got {params.dtype} {tuple(params.shape)}, "
-            f"tile {tile_h}x{tile_w}")
-    if (counts.dtype != torch.int32 or counts.shape != (T,)
-            or counts.device != params.device or not counts.is_contiguous()):
-        raise ValueError("composite_fwd: counts must be a contiguous int32 "
-                         f"[{T}] tensor on {params.device}")
+    _check_kernel_inputs("composite_fwd", params, counts, tile_h, tile_w)
     out = torch.empty(T, 8, P, dtype=torch.float32, device=params.device)
     lib = _build.load("composite_fwd", _SIGNATURES)
     err = lib.composite_fwd_f32(
@@ -292,6 +330,159 @@ def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
 
 
 composite_fwd.launches = 0
+
+
+def _check_kernel_inputs(what, params, counts, tile_h, tile_w, named=()):
+    T, MPT, R = params.shape
+    P = tile_h * tile_w
+    if (params.dtype != torch.float32 or not params.is_contiguous()
+            or R not in (9, 10) or P > 1024 or P % 32 or MPT % G_CHUNK):
+        raise ValueError(
+            f"{what} kernel takes contiguous f32 params [T, MPT, R] with R "
+            f"in (9, 10), MPT % {G_CHUNK} == 0 and a multiple of 32 pixels "
+            f"per tile, at most 1024; got {params.dtype} "
+            f"{tuple(params.shape)}, tile {tile_h}x{tile_w}")
+    if (counts.dtype != torch.int32 or counts.shape != (T,)
+            or counts.device != params.device or not counts.is_contiguous()):
+        raise ValueError(f"{what}: counts must be a contiguous int32 [{T}] "
+                         f"tensor on {params.device}")
+    for name, x in named:
+        if (x.dtype != torch.float32 or x.shape != (T, 8, P)
+                or x.device != params.device or not x.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous f32 "
+                             f"[{T}, 8, {P}] tensor on {params.device}")
+
+
+def composite_bwd_reference(params, counts, fo, go, tile_h, tile_w,
+                            tiles_x):
+    """Plain version of K2ᵇ: the VJP of K2 at ``params`` for the output
+    cotangent ``go`` [T, 8, P], given K2's output ``fo``. Returns dparams
+    like params [T, MPT, R].
+
+    The arithmetic of ``lgm_tpu/ops/gsplat/flatsort.py::_bwd_tile``:
+    front-to-back replay with the forward's chunking and tile-wide
+    early-out; s = Σ_c go_c·col_c; the suffix Σ_{j>i} s_j w_j + gT·T_final
+    as U_eff − prefix(u) (U_eff folds in gT·T_final); dalpha = s·T_i −
+    suffix / max(1 − α, 0.01) where α > 0, else 0; dpower = dalpha·α where
+    op·e < 0.99 (unclamped), else 0. It takes the gradient of the tile-local
+    quadratic directly in (x̄, ȳ, A, B, C) — the same numbers as chaining
+    lgm_tpu's coefficient cotangents, without their cancellation — and
+    dop = Σ_p dpower / max(op, 1e-12), dcol = Σ_p go·w, in plain f32."""
+    T, MPT, R = params.shape
+    P = tile_h * tile_w
+    dev = params.device
+    pix = torch.arange(P, device=dev)
+    lx = (pix % tile_w).float()
+    ly = torch.div(pix, tile_w, rounding_mode="floor").float()
+    tid = torch.arange(T, device=dev)
+    tox = ((tid % tiles_x) * tile_w).float()[:, None, None]
+    toy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile_h
+           ).float()[:, None, None]
+    counts = counts.long()
+    # U_eff: channels r, g, b, alpha, depth, plus gT * T_final (row 4).
+    u_eff = ((go[:, 0:6] * fo[:, 0:6]).sum(dim=1))[:, None, :]   # [T, 1, P]
+    gcol = go[:, None, :, :]                                      # [T,1,8,P]
+
+    Tr = torch.ones(T, 1, P, device=dev)
+    pref = torch.zeros(T, 1, P, device=dev)
+    dparams = torch.zeros_like(params)
+    for c0 in range(0, MPT, G_CHUNK):
+        live = (c0 < counts) & (Tr.amax(dim=(1, 2)) > T_EPS)          # [T]
+        if not bool(live.any()):
+            break
+        blk = params[:, c0:c0 + G_CHUNK]                             # [T,G,R]
+        A, B, C = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
+        op = blk[..., 5:6]
+        dx = lx - (blk[..., 0:1] - tox)                              # [T,G,P]
+        dy = ly - (blk[..., 1:2] - toy)
+        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+        araw = op * torch.exp(power)
+        use = live[:, None, None] & (power <= 0.0) & (araw >= ALPHA_MIN)
+        alpha = torch.where(use, torch.clamp(araw, max=ALPHA_MAX),
+                            torch.zeros_like(araw))
+        om = 1.0 - alpha
+        cp = torch.cumprod(om, dim=1)
+        t_i = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1) * Tr
+        w = alpha * t_i
+        s = (blk[..., 6:7] * gcol[:, :, 0] + blk[..., 7:8] * gcol[:, :, 1]
+             + blk[..., 8:9] * gcol[:, :, 2] + gcol[:, :, 3])
+        if R > 9:
+            s = s + blk[..., 9:10] * gcol[:, :, 5]
+        pref_i = pref + torch.cumsum(s * w, dim=1)
+        dalpha = s * t_i - (u_eff - pref_i) / torch.clamp(
+            om, min=1.0 - ALPHA_MAX)
+        dalpha = torch.where(alpha > 0.0, dalpha, torch.zeros_like(dalpha))
+        dpower = torch.where(araw < ALPHA_MAX, dalpha * alpha,
+                             torch.zeros_like(dalpha))
+        rows = [
+            (dpower * (A * dx + B * dy)).sum(-1),        # d x̄
+            (dpower * (C * dy + B * dx)).sum(-1),        # d ȳ
+            (-0.5 * dpower * dx * dx).sum(-1),           # d A
+            (-dpower * dx * dy).sum(-1),                 # d B
+            (-0.5 * dpower * dy * dy).sum(-1),           # d C
+            dpower.sum(-1) / torch.clamp(op[..., 0], min=1e-12),   # d op
+        ]
+        rows += [(gcol[:, :, c] * w).sum(-1) for c in (0, 1, 2)]
+        if R > 9:
+            rows.append((gcol[:, :, 5] * w).sum(-1))
+        dparams[:, c0:c0 + G_CHUNK] = torch.stack(rows, dim=-1)
+        pref = pref_i[:, -1:]
+        Tr = Tr * cp[:, -1:]
+    return dparams
+
+
+def composite_bwd(params, counts, fo, go, tile_h: int, tile_w: int,
+                  tiles_x: int) -> torch.Tensor:
+    """K2ᵇ on CUDA tensors, ``composite_bwd_reference`` on CPU tensors."""
+    if params.device.type == "cpu":
+        return composite_bwd_reference(params, counts, fo, go, tile_h,
+                                       tile_w, tiles_x)
+    if params.device.type != "cuda":
+        raise ValueError(f"composite_bwd: unsupported device {params.device}")
+    T, MPT, R = params.shape
+    _check_kernel_inputs("composite_bwd", params, counts, tile_h, tile_w,
+                         (("fo", fo), ("go", go)))
+    dparams = torch.empty_like(params)
+    lib = _build.load("composite_bwd", _BWD_SIGNATURES)
+    err = lib.composite_bwd_f32(
+        params.data_ptr(), counts.data_ptr(), fo.data_ptr(), go.data_ptr(),
+        dparams.data_ptr(), T, MPT, R, tile_h, tile_w, tiles_x,
+        torch.cuda.current_stream(params.device).cuda_stream,
+        params.device.index)
+    _build.check(lib, err, "composite_bwd")
+    composite_bwd.launches += 1
+    return dparams
+
+
+composite_bwd.launches = 0
+
+
+class _Composite(torch.autograd.Function):
+    """K2 forward, K2ᵇ backward; residuals params, counts and the output
+    (``_cf_fwd``)."""
+
+    @staticmethod
+    def forward(ctx, params, counts, tile_h, tile_w, tiles_x):
+        out = composite_fwd(params, counts, tile_h, tile_w, tiles_x)
+        ctx.save_for_backward(params, counts, out)
+        ctx.tiling = (tile_h, tile_w, tiles_x)
+        return out
+
+    @staticmethod
+    def backward(ctx, go):
+        params, counts, out = ctx.saved_tensors
+        dparams = composite_bwd(params, counts, out, go.contiguous(),
+                                *ctx.tiling)
+        return dparams, None, None, None, None
+
+
+def composite(params, counts, tile_h: int, tile_w: int,
+              tiles_x: int) -> torch.Tensor:
+    """The per-tile composite with a gradient: ``composite_fwd``, and
+    ``composite_bwd`` on the way back when autograd records the call."""
+    if torch.is_grad_enabled() and params.requires_grad:
+        return _Composite.apply(params, counts, tile_h, tile_w, tiles_x)
+    return composite_fwd(params, counts, tile_h, tile_w, tiles_x)
 
 
 def _pack_output(out, bg_color, image_size, tile_h, tile_w, with_depth):
@@ -316,8 +507,7 @@ def render_flatsort(gaussians, view, image_size, tan_half_fov, bg_color,
     params, counts = _prepare_view(
         gaussians, view, image_size, tan_half_fov, scale_modifier, tile_h,
         tile_w, dup, max_per_tile, with_depth)
-    out = composite_fwd(params, counts, tile_h, tile_w,
-                        image_size // tile_w)
+    out = composite(params, counts, tile_h, tile_w, image_size // tile_w)
     return _pack_output(out, bg_color, image_size, tile_h, tile_w,
                         with_depth)
 

@@ -1,7 +1,7 @@
 """Camera math: orbit poses, ray generation, projection, convention changes.
 
 The package's own numpy copy of ``lgm_tpu/utils/camera.py`` (the inference
-subset). Conventions (ref: core/utils.py:10-43,
+and synthetic-training subset). Conventions (ref: core/utils.py:10-43,
 core/provider_objaverse.py:94-170, core/gs.py:23-29):
 
 - World: y-up. Object fits in [-1, 1]^3; orbit cameras at ``cam_radius``.
@@ -136,6 +136,17 @@ def invert_pose(poses):
         top.shape[:-2] + (1, 4),
     )
     return np.concatenate([top, bottom], axis=-2)
+
+
+def canonicalize_poses(poses, cam_radius: float):
+    """Rigidly transform all poses so pose[0] sits at the canonical front
+    position (identity rotation, translation (0, 0, cam_radius))
+    (ref: core/provider_objaverse.py:127-128)."""
+    poses = np.asarray(poses, dtype=_NP_F32)
+    target = np.eye(4, dtype=_NP_F32)
+    target[2, 3] = cam_radius
+    transform = target @ invert_pose(poses[0])
+    return transform[None] @ poses
 
 
 def build_camera_inputs(poses_opengl, fovy_deg: float, znear: float,

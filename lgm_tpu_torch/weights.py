@@ -7,7 +7,10 @@ so a reference checkpoint (``.safetensors`` or ``.pt``) loads with
 for the port. ``flax_params_to_state_dict`` is the inverse of
 ``lgm_tpu/tools/convert_weights.py``: it turns an ``lgm_tpu`` Flax LGM
 parameter tree (numpy leaves) into that state dict — conv HWIO -> OIHW,
-dense [in, out] -> [out, in], GroupNorm ``scale`` -> ``weight``.
+dense [in, out] -> [out, in], GroupNorm ``scale`` -> ``weight``. Given the
+whole ``LGMWithLoss`` tree (``lgm/...`` and ``lpips_loss/m/...``) it
+returns the state dict of the port's ``LGMWithLoss``: ``lgm.*`` as above,
+``lpips_loss.vgg.conv{s}_{c}.*`` and ``lpips_loss.lin{k}``.
 
 Orbax checkpoints written by ``lgm_tpu.train`` need JAX to read and are
 not loaded here.
@@ -46,11 +49,34 @@ def _torch_module_path(path) -> str:
     return ".".join(out)
 
 
+def _lpips_state_dict(m: Mapping) -> Dict[str, np.ndarray]:
+    """lgm_tpu LPIPS params (``vgg/conv{s}_{c}/{kernel,bias}``,
+    ``lin{k}``) -> the port's LPIPS state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    for name, conv in m["vgg"].items():
+        sd[f"vgg.{name}.weight"] = np.ascontiguousarray(
+            np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1))
+        sd[f"vgg.{name}.bias"] = np.array(conv["bias"], np.float32)
+    for name, val in m.items():
+        if name != "vgg":
+            sd[name] = np.array(val, np.float32)
+    return sd
+
+
 def flax_params_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
-    """``lgm_tpu`` LGM params (``{"unet": ..., "conv": ...}``, optionally
-    under ``"params"``) -> reference torch state dict of numpy arrays."""
+    """``lgm_tpu`` LGM params (``{"unet": ..., "conv": ...}``) or
+    ``LGMWithLoss`` params (``{"lgm": ..., "lpips_loss": ...}``), either
+    optionally under ``"params"`` -> the port's state dict of numpy
+    arrays (the reference torch names for the LGM)."""
     if "params" in params:
         params = params["params"]
+    if "lgm" in params:
+        sd = {f"lgm.{k}": v
+              for k, v in flax_params_to_state_dict(params["lgm"]).items()}
+        if "lpips_loss" in params:
+            sd.update({f"lpips_loss.{k}": v for k, v in _lpips_state_dict(
+                params["lpips_loss"]["m"]).items()})
+        return sd
     sd: Dict[str, np.ndarray] = {}
 
     def walk(node, path):

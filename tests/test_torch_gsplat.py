@@ -1,10 +1,12 @@
-"""Port's splat renderer (projection, flatsort binning, K2's plain version,
-the oracle) vs lgm_tpu's, on the CPU. The flatsort composite of lgm_tpu
-runs its Pallas kernel in interpret mode, as tests/test_flatsort.py does."""
+"""Port's splat renderer (projection, flatsort binning, K2's and K2ᵇ's plain
+versions, the oracle) vs lgm_tpu's, on the CPU, forward and gradient. The
+flatsort composite of lgm_tpu runs its Pallas kernels in interpret mode, as
+tests/test_flatsort.py does."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -17,6 +19,7 @@ from lgm_tpu_torch.ops.gsplat.api import render_views
 from lgm_tpu_torch.ops.gsplat.projection import project_gaussians
 from lgm_tpu_torch.ops.gsplat.reference import render_reference
 from lgm_tpu_torch.utils import camera
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FOVY = 49.1
 TAN = float(np.tan(0.5 * np.deg2rad(FOVY)))
@@ -209,3 +212,163 @@ def test_composite_fwd_rejects_other_devices():
     counts = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         fs.composite_fwd(params, counts, 32, 32, 1)
+
+
+def _jax_slots(jparams):
+    """[T, MPT, R] slot-major -> lgm_tpu's [T, NC, R, 128] kernel layout."""
+    T, MPT, R = jparams.shape
+    return jnp.asarray(jparams.reshape(T, MPT // 128, 128, R)
+                       .transpose(0, 1, 3, 2))
+
+
+@pytest.mark.parametrize("with_depth", [True, False])
+def test_composite_bwd_reference_matches_jax_vjp(with_depth):
+    """K2ᵇ's plain version vs jax.vjp of lgm_tpu's _composite_flat (the
+    TPU backward kernel in interpret mode) on the same slots and a seeded
+    cotangent, per gradient row to 1e-4 of the row's largest |value|: the
+    TPU kernel forms its products from bf16 hi/lo halves (2^-16 relative
+    per term), the port in plain f32."""
+    S, th, tw = 64, 16, 16
+    params, counts, jparams, jcounts = _prepare_both(
+        scene(), view_of(), S, th, tw, 16, 256)
+    if not with_depth:
+        jparams = np.ascontiguousarray(jparams[..., :9])
+    T, MPT, R = jparams.shape
+    go = np.random.default_rng(7).normal(0, 1, (T, 8, th * tw)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda p: jfs._composite_flat(
+        p, jnp.asarray(jcounts), jfs._pf_split_t(th, tw), True, S // tw, tw,
+        th, with_depth), _jax_slots(jparams))
+    ref = np.asarray(vjp(jnp.asarray(go))[0]).transpose(0, 1, 3, 2).reshape(
+        T, MPT, R)
+    pt, ct = torch.as_tensor(jparams), torch.as_tensor(jcounts)
+    fo = fs.composite_reference(pt, ct, th, tw, S // tw)
+    ours = fs.composite_bwd(pt, ct, fo, torch.as_tensor(go), th, tw,
+                            S // tw).numpy()
+    assert ours.shape == ref.shape
+    for r in range(R):
+        np.testing.assert_allclose(ours[..., r], ref[..., r],
+                                   atol=1e-4 * np.abs(ref[..., r]).max(),
+                                   err_msg=f"row {r}")
+    # Slots past each tile's count get zero rows.
+    dead = np.arange(MPT)[None, :] >= jcounts[:, None]
+    assert np.all(ours[dead] == 0.0)
+
+
+def test_composite_bwd_reference_is_autograd_of_plain_forward():
+    """The analytic VJP equals autograd through K2's plain forward,
+    including a tile that stops early at T <= 1e-4 (opaque splats) and
+    the 0.99 clamp. Autograd sums the suffix Σ_{j>i} s_j w_j backwards,
+    the VJP takes it as U_eff − prefix, which loses f32 digits relative to
+    U_eff: 1e-4 of each row's scale."""
+    S, th, tw = 64, 16, 16
+    g = scene(800, seed=6)
+    g[:300, 3] = 1.0         # large opaque splats: clamp and early-out
+    g[:300, 4:7] = 0.25
+    params, counts = fs._prepare_view(
+        torch.as_tensor(g), torch.as_tensor(view_of()), S, TAN, 1.0, th, tw,
+        16, 512, True)
+    params = params.detach()
+    go = torch.as_tensor(np.random.default_rng(8).normal(
+        0, 1, (params.shape[0], 8, th * tw)).astype(np.float32))
+    p = params.clone().requires_grad_()
+    fo = fs._composite_plain(p, counts, th, tw, S // tw)[0]
+    (fo * go).sum().backward()
+    ours = fs.composite_bwd_reference(params, counts, fo.detach(), go, th,
+                                      tw, S // tw)
+    work = fs.composite_work(params, counts, th, tw, S // tw)
+    assert work["slots"] < int(counts.sum())  # some tile stopped early
+    for r in range(params.shape[2]):
+        torch.testing.assert_close(
+            ours[..., r], p.grad[..., r], rtol=0,
+            atol=1e-4 * float(p.grad[..., r].abs().max()))
+
+
+def _grad_views(g, views, bg, tgt, S, backend, **kw):
+    gt = torch.as_tensor(g).requires_grad_()
+    out = render_views(gt, torch.as_tensor(views), S, TAN,
+                       torch.as_tensor(bg), backend=backend,
+                       with_depth=False, **kw)
+    loss = ((out["image"] - torch.as_tensor(tgt)) ** 2).mean() \
+        + 0.1 * out["alpha"].mean()
+    loss.backward()
+    return gt.grad.numpy()
+
+
+def _jax_grad_views(g, views, bg, tgt, S, backend, **kw):
+    from lgm_tpu.ops.gsplat.api import render_views as jax_render_views
+
+    def loss(gs):
+        if backend == "flatsort":  # interpret mode, through the same API
+            out = jfs.render_views_flatsort(
+                gs, jnp.asarray(views), S, TAN, jnp.asarray(bg),
+                interpret=True, with_depth=False, **kw)
+            out = dict(image=jnp.clip(out["image"], 0.0, 1.0),
+                       alpha=out["alpha"][..., None])
+        else:
+            out = jax_render_views(gs, jnp.asarray(views), S, TAN,
+                                   jnp.asarray(bg), backend=backend,
+                                   with_depth=False)
+        return jnp.mean((out["image"] - jnp.asarray(tgt)) ** 2) \
+            + 0.1 * jnp.mean(out["alpha"])
+
+    return np.asarray(jax.grad(loss)(jnp.asarray(g)))
+
+
+def _grad_case():
+    B, V, S = 2, 2, 32
+    g = np.stack([scene(60, seed=11), scene(60, seed=12)])
+    views = np.stack([np.stack([view_of(5.0, 30.0),
+                                view_of(-10.0, 200.0)])] * B)
+    bg = np.broadcast_to(np.float32([0.2, 0.4, 0.6]), (B, V, 3)).copy()
+    tgt = np.random.default_rng(5).uniform(0, 1, (B, V, S, S, 3)).astype(
+        np.float32)
+    return g, views, bg, tgt, S
+
+
+def test_render_views_grad_matches_jax_flatsort():
+    """Gradients through the whole flatsort path (projection, binning
+    without gradient, permutation, slot gather and its scatter-add, K2ᵇ's
+    plain version, packing) over a [2, 2] view grid vs lgm_tpu's flatsort
+    (interpret), with_depth=False as the loss renders: the same function,
+    so 1e-3 of the largest gradient (the TPU kernels' bf16 hi/lo products;
+    as tests/test_flatsort.py holds flatsort to the oracle at 2e-3)."""
+    g, views, bg, tgt, S = _grad_case()
+    kw = dict(tile_h=8, tile_w=32, dup=16, max_per_tile=256)
+    ours = _grad_views(g, views, bg, tgt, S, "flatsort", **kw)
+    ref = _jax_grad_views(g, views, bg, tgt, S, "flatsort", **kw)
+    assert np.isfinite(ours).all() and np.abs(ours).max() > 0
+    np.testing.assert_allclose(ours, ref, atol=1e-3 * np.abs(ref).max())
+
+
+def test_oracle_grad_matches_jax_reference():
+    """The oracle's autograd gradient vs lgm_tpu's reference renderer's
+    (exact arithmetic on both sides, f32 order): 1e-4 of the largest."""
+    g, views, bg, tgt, S = _grad_case()
+    ours = _grad_views(g, views, bg, tgt, S, "reference")
+    ref = _jax_grad_views(g, views, bg, tgt, S, "xla")
+    np.testing.assert_allclose(ours, ref, atol=1e-4 * np.abs(ref).max())
+
+
+def test_flatsort_grad_matches_oracle_and_reaches_its_scene():
+    """Flatsort's gradient vs the oracle's on the same views (2e-3 of the
+    largest, as tests/test_flatsort.py); a loss on scene 0 alone gives
+    scene 1 exactly zero gradient."""
+    g, views, bg, tgt, S = _grad_case()
+    kw = dict(tile_h=8, tile_w=32, dup=16)
+    fla = _grad_views(g, views, bg, tgt, S, "flatsort", **kw)
+    ora = _grad_views(g, views, bg, tgt, S, "reference")
+    np.testing.assert_allclose(fla, ora, atol=2e-3 * np.abs(ora).max())
+    gt = torch.as_tensor(g).requires_grad_()
+    out = render_views(gt, torch.as_tensor(views), S, TAN, with_depth=False,
+                       **kw)
+    (out["image"][0] ** 2).sum().backward()
+    assert gt.grad[0].abs().max() > 0
+    assert torch.all(gt.grad[1] == 0)
+
+
+def test_composite_bwd_rejects_other_devices():
+    params = torch.empty(1, 128, 9, device="meta")
+    counts = torch.empty(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        fs.composite_bwd(params, counts, params, params, 32, 32, 1)

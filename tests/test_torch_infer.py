@@ -20,6 +20,7 @@ from lgm_tpu_torch.config import get_config
 from lgm_tpu_torch.io.ply import load_ply
 from lgm_tpu_torch.weights import flax_params_to_state_dict, \
     load_state_dict_into
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -48,7 +48,8 @@ def test_kernel_sources_are_found_and_build_needs_nvcc(tmp_path,
     from lgm_tpu_torch.ops import _build
 
     srcs = _build.sources()
-    assert set(srcs) == {"mha_fwd", "composite_fwd"}
+    assert set(srcs) == {"mha_fwd", "mha_bwd", "composite_fwd",
+                         "composite_bwd"}
     assert all(p.suffix == ".cu" and p.parent.name == "csrc"
                for p in srcs.values())
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")

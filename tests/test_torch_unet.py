@@ -22,6 +22,7 @@ from lgm_tpu_torch.models.unet import UNet
 from lgm_tpu_torch.weights import (flax_params_to_state_dict,
                                    load_reference_weights,
                                    load_state_dict_into)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
