@@ -108,7 +108,7 @@ class Options:
     # dup table) — oracle-clean rendering costs +16% step time, so 64
     # stays an opt-in for quality-critical runs.
     rasterizer_dup: Optional[int] = 32
-    # Rasterizer backend: "auto" | "pallas" | "xla".
+    # Rasterizer backend: "auto" | "pallas" | "pallas_v1" | "xla".
     rasterizer: str = "auto"
 
     # --- testing / inference --------------------------------------------

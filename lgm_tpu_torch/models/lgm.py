@@ -125,12 +125,14 @@ def _resize_nchw_256(x: torch.Tensor) -> torch.Tensor:
 
 def rasterizer_backend(name: str) -> str:
     """lgm_tpu's ``rasterizer`` option -> the port's ``render_views``
-    backend: its flatsort for "auto"/"pallas", the oracle for "xla"."""
+    backend: its flatsort for "auto"/"pallas", the v1 tiled rasterizer for
+    "pallas_v1", the oracle for "xla"."""
     backends = {"auto": "flatsort", "pallas": "flatsort", "flatsort":
-                "flatsort", "xla": "reference", "reference": "reference"}
+                "flatsort", "pallas_v1": "pallas_v1", "xla": "reference",
+                "reference": "reference"}
     if name not in backends:
-        raise NotImplementedError(
-            f"rasterizer {name!r} is not ported (pallas_v1 waits for K3)")
+        raise ValueError(f"unknown rasterizer {name!r}; one of "
+                         f"{sorted(backends)}")
     return backends[name]
 
 

@@ -4,7 +4,8 @@ Every ``lgm_tpu_torch/**/csrc/<name>.cu`` is one kernel with a plain C
 interface: no PyTorch headers, so ``nvcc`` takes seconds, not minutes. At
 first use it is compiled for Hopper (``sm_90a``) into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, keyed by a
-hash of the source and the flags, and loaded with ``ctypes``. Each C entry
+hash of the source, the ``*.cuh`` headers beside it and the flags, and
+loaded with ``ctypes``. Each C entry
 returns ``cudaGetLastError()`` after its launch; ``check`` raises when it
 is not 0. A failed build raises: nothing falls back to a plain version.
 """
@@ -46,9 +47,10 @@ def _nvcc() -> str:
 
 
 def target(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *sorted(src.parent.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

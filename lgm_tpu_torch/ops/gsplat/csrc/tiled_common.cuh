@@ -1,0 +1,70 @@
+// Shared by tiled_fwd.cu (K3) and tiled_bwd.cu (K3ᵇ): the constants, the
+// staging of one 128-slot chunk, and the alpha of one (pixel, slot) pair.
+//
+// K3ᵇ replays K3, so both must take the same decisions (alpha test, 0.99
+// clamp, the tile's early-out vote) from the same bits. The power is
+// therefore one fixed sequence of f32 roundings, written with intrinsics
+// that the compiler may not contract into fused multiply-adds:
+//   ((((f0 c0 + f1 c1) + f2 c2) + f3 c3) + f4 c4) + f5 c5
+// with every product and every sum rounded on its own. The plain PyTorch
+// versions (ops/gsplat/tiled.py::_chunk_alpha) take the same sequence. The
+// expanded quadratic cancels large terms and the function jumps where
+// power crosses 0 and where op e^power crosses 1/255, so a different
+// rounding would land isolated pixels on the other side of a jump.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace tiled {
+
+constexpr int kChunk = 128;  // slots per chunk (G_CHUNK)
+constexpr int kRows = 16;    // rows of params_tiles [T, 16, K]
+constexpr int kStaged = 10;  // rows read: 0-5 coefficients, 6 opacity, 8-10 rgb
+constexpr int kFeat = 6;     // pixel features read: x², y², xy, x, y, 1
+constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr float kAlphaMax = 0.99f;
+constexpr float kTEps = 1e-4f;
+
+// Copies rows 0-6 and 8-10 of the chunk at slot c0 of one tile's [16, K]
+// block into rows[kStaged][kChunk] (row 8 lands at staged row 7, and so
+// on). Coalesced; the caller synchronizes.
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ blk,
+                                            int K, int c0, float* rows) {
+  for (int i = threadIdx.x; i < kStaged * kChunk; i += blockDim.x) {
+    const int r = i / kChunk, j = i % kChunk;
+    rows[i] = blk[(size_t)(r < 7 ? r : r + 1) * K + c0 + j];
+  }
+}
+
+struct Pair {
+  float alpha;  // min(op e^power, 0.99) where used, else 0
+  float araw;   // op e^power
+  float e;      // e^power
+  bool use;     // power <= 0 and op e^power >= 1/255
+};
+
+// The alpha of slot j of the staged chunk at the pixel whose features are
+// f[0..5]. Slots past the tile's count are zero rows: power 0, op 0, not
+// used.
+__device__ __forceinline__ Pair pair_alpha(const float (&f)[kFeat],
+                                           const float* rows, int j) {
+  float power = __fmul_rn(f[0], rows[j]);
+#pragma unroll
+  for (int k = 1; k < kFeat; ++k)
+    power = __fadd_rn(power, __fmul_rn(f[k], rows[k * kChunk + j]));
+  Pair p;
+  p.e = expf(power);
+  p.araw = __fmul_rn(rows[6 * kChunk + j], p.e);
+  p.use = power <= 0.f && p.araw >= kAlphaMin;
+  p.alpha = p.use ? fminf(p.araw, kAlphaMax) : 0.f;
+  return p;
+}
+
+// The transmittance behind a used pair.
+__device__ __forceinline__ float attenuate(float T, float alpha) {
+  return __fmul_rn(T, __fsub_rn(1.f, alpha));
+}
+
+}  // namespace tiled

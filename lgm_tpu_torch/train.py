@@ -18,7 +18,13 @@ in-flight step and ``--resume auto`` continues from the newest one.
 [10, 10 + N) to ``<workspace>/trace``.
 
 Run:  python -m lgm_tpu_torch.train big --workspace ws --total-steps N
-      [--device cuda|cpu] [any Options field as --flag]
+      [--device cuda|cpu] [--rasterizer auto|pallas|pallas_v1|xla]
+      [any Options field as --flag]
+
+``--rasterizer`` picks the renderer of the train step and the eval
+renders (``models/lgm.py::rasterizer_backend``): flatsort (kernels K2,
+K2ᵇ) for ``auto``/``pallas``, the v1 tiled rasterizer (K3, K3ᵇ) for
+``pallas_v1``, the exact oracle for ``xla``.
 
 Scalars go to ``<workspace>/metrics.jsonl``, and to TensorBoard under
 ``<workspace>/tb`` where ``torch.utils.tensorboard`` imports.

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from lgm_tpu_torch.ops.gsplat import flatsort as fs
+from lgm_tpu_torch.ops.gsplat import tiled as tt
 from lgm_tpu_torch.ops.mha import (mha, mha_bwd, mha_bwd_reference, mha_fwd,
                                    mha_reference)
 from lgm_tpu_torch.utils import camera
@@ -239,3 +240,106 @@ def test_composite_bwd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         small = torch.zeros(4, 8, 25, device=cuda)
         fs.composite_bwd(params, counts, small, small, 5, 5, 2)  # P % 32
+
+
+def _rows_first_close(ours, ref, rel=1e-4):
+    """Per row of a [T, 16, K] gradient: 1e-4 of the row's scale."""
+    _assert_rows_close(ours.transpose(1, 2), ref.transpose(1, 2), rel)
+
+
+@pytest.mark.parametrize("tile,opaque", [((16, 16), 0), ((8, 32), 0),
+                                         ((32, 32), 0), ((32, 32), 600),
+                                         ((16, 16), 600)])
+def test_tile_composite_kernels_match_plain(cuda, tile, opaque):
+    """K3 and K3ᵇ vs their plain versions on the same params_tiles, counts
+    and pf, over several 128-slot chunks, with every seventh tile's count
+    set to 0 (an empty tile whose rows stay); with ``opaque``, tiles stop
+    early at T <= 1e-4. Kernel and plain version take power, alpha test
+    and clamp from the same f32 roundings: what is left is the order of
+    the f32 sums and an early-out flipping at its threshold. Forward 1e-3
+    absolute (as K2), backward 1e-4 of each row's scale (as K2ᵇ)."""
+    th, tw = tile
+    rng = np.random.default_rng(5)
+    g = _scene(3000, rng, opaque)
+    S = 128
+    view = camera.build_camera_inputs(camera.orbit_camera(10, 30, 1.5)[None],
+                                      FOVY, 0.5, 2.5)["cam_view"][0]
+    with torch.no_grad():
+        params, counts, pf = tt._prepare_view(
+            torch.as_tensor(g, device=cuda),
+            torch.as_tensor(view, device=cuda), S, TAN, 1.0, th, tw, 512)
+        counts[::7] = 0
+        f0, b0 = tt.tile_composite_fwd.launches, tt.tile_composite_bwd.launches
+        fo = tt.tile_composite_fwd(params, counts, pf)
+        ref = tt.tile_composite_reference(params, counts, pf)
+        go = torch.as_tensor(rng.normal(0, 1, fo.shape), dtype=torch.float32,
+                             device=cuda)
+        ours = tt.tile_composite_bwd(params, counts, pf, fo, go)
+        dref = tt.tile_composite_bwd_reference(params, counts, pf, fo, go)
+        work = tt._composite_plain(params, counts, pf)[1]
+    torch.cuda.synchronize()
+    assert (tt.tile_composite_fwd.launches,
+            tt.tile_composite_bwd.launches) == (f0 + 1, b0 + 1)
+    assert int(counts.max()) > 128
+    if opaque:  # some tile stopped before the end of its list
+        assert bool((work * 128 < counts).any())
+    assert (fo - ref).abs().max().item() <= 1e-3
+    assert torch.all(fo[..., 5:] == 0) and torch.all(fo[::7, :, 4] == 1)
+    _rows_first_close(ours, dref)
+    skipped = (torch.arange(512, device=cuda)[None, :] // 128
+               >= work[:, None])                              # [T, K]
+    assert torch.all(ours.transpose(1, 2)[skipped] == 0)
+    assert torch.all(ours[:, [7, 11, 12, 13, 14, 15]] == 0)
+
+
+def test_render_tiled_grad_launches_both_kernels(cuda):
+    """Autograd through render_views(backend="pallas_v1") on the card runs
+    K3 and K3ᵇ once per view and gives the CPU plain path's image and
+    gradient: 1e-3 of the largest gradient, as the flatsort path's test
+    (projection and exp round differently on the two devices, and the
+    expanded quadratic amplifies that)."""
+    from lgm_tpu_torch.ops.gsplat.api import render_views
+
+    rng = np.random.default_rng(6)
+    g = torch.as_tensor(_scene(2000, rng)[None], device=cuda)
+    views = torch.as_tensor(np.stack([camera.build_camera_inputs(
+        camera.orbit_camera(10, az, 1.5)[None], FOVY, 0.5, 2.5)["cam_view"][0]
+        for az in (30, 150)])[None], device=cuda)
+    tgt = torch.rand(1, 2, 128, 128, 3, device=cuda)
+
+    def grad(g, views, tgt):
+        gt = g.clone().requires_grad_()
+        out = render_views(gt, views, 128, TAN, backend="pallas_v1")
+        ((out["image"] - tgt) ** 2).mean().backward()
+        return out["image"].detach(), gt.grad
+
+    f0, b0 = tt.tile_composite_fwd.launches, tt.tile_composite_bwd.launches
+    img, ours = grad(g, views, tgt)
+    torch.cuda.synchronize()
+    assert tt.tile_composite_fwd.launches == f0 + 2
+    assert tt.tile_composite_bwd.launches == b0 + 2
+    img_cpu, ref = grad(g.cpu(), views.cpu(), tgt.cpu())
+    assert (img.cpu() - img_cpu).abs().mean().item() <= 1e-4
+    err = (ours.cpu() - ref).abs().max().item()
+    assert err <= 1e-3 * ref.abs().max().item(), err
+
+
+def test_tile_composite_kernels_refuse_what_they_do_not_take(cuda):
+    params = torch.zeros(4, 16, 128, device=cuda)
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    pf = tt._pixel_features(8, 8, cuda)
+    fo = torch.zeros(4, 64, 8, device=cuda)
+    with pytest.raises(ValueError):
+        tt.tile_composite_fwd(params[:, :, :100].contiguous(), counts, pf)
+    with pytest.raises(ValueError):
+        tt.tile_composite_fwd(params, counts.long(), pf)
+    with pytest.raises(ValueError):  # 25 pixels: not whole warps
+        tt.tile_composite_fwd(params, counts, tt._pixel_features(5, 5, cuda))
+    with pytest.raises(ValueError):  # 2048 pixels: more than one block
+        tt.tile_composite_fwd(params, counts,
+                              tt._pixel_features(32, 64, cuda))
+    with pytest.raises(ValueError):
+        tt.tile_composite_bwd(params, counts, pf, fo, fo[:, :32].contiguous())
+    with pytest.raises(NotImplementedError):
+        tt.tile_composite_fwd(params.clone().requires_grad_(), counts, pf)
+    assert torch.all(tt.tile_composite_fwd(params, counts, pf)[..., 4] == 1)
