@@ -14,8 +14,8 @@ to 0 just before it and read just after:
   .ply -> 180-frame orbit at 512² (kernels K1, K2);
 - training: ``lgm_tpu_torch.train`` at ``big``, batch 2, seeded weights
   and synthetic batches, one cold and three warm steps through the
-  trainer's own step function (K1, K1ᵇ, K2, K2ᵇ), then K1ᵇ and K2ᵇ held
-  against their plain versions on that step's own inputs, then two
+  trainer's own step function (K1, K1ᵇ, K2, K2ᵇ), then K1, K1ᵇ and K2ᵇ
+  held against their plain versions on that step's own inputs, then two
   steps with the U-Net recompute that ``train big`` runs by default;
 - training with ``--rasterizer pallas_v1``: the same, one cold and three
   warm steps, the supervision views through the v1 tiled rasterizer (K1,
@@ -60,6 +60,14 @@ K1B_SHAPES = [((32, 4096, 32), 5), ((32, 1024, 64), 5), ((32, 256, 64), 6)]
 # value; kernel and plain version sum in different orders (and K1ᵇ's bf16
 # dS and P may round the other way), so allow two steps of the scale.
 K1_REL_TOL = 2.0 ** -7
+# K1's row logsumexp against the plain version's: both f32, from logits
+# and sums taken in other orders (and ex2.approx in the kernel): 1e-5 of
+# max(1, the largest |L|).
+K1_LSE_REL_TOL = 1e-5
+# K1, K1ᵇ and SDPA are timed over this many calls back to back (see
+# cuda_ms): their device time, which the host's time to enqueue one call
+# (longer than the kernels' at S = 256) would otherwise hide.
+K1_LAUNCHES = 10
 # K2 tolerance: f32 sums in another order (and FMA contraction), plus the
 # tile early-out at T <= 1e-4, which may flip at the threshold: at most
 # 1e-4 of a value <= 2.5 (the depth row).
@@ -110,8 +118,12 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, reps: int = 10, warm: int = 2, launches: int = 1) -> float:
+    """Median time of one ``fn`` in ms over ``reps`` samples (CUDA events).
+    A sample spans ``launches`` calls back to back and is divided by their
+    number: with 1, the host's time to enqueue the call is counted too
+    wherever it exceeds the device's; with more, the host runs ahead and
+    the sample is the device's time per call."""
     import torch
 
     for _ in range(warm):
@@ -122,10 +134,11 @@ def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     times.sort()
     return times[len(times) // 2]
 
@@ -185,15 +198,26 @@ def k3b_bound(work: dict, T: int, P: int, K: int):
         + 2 * T * P * 8 * 4 + T * 16 * K * 4)
 
 
+def k1_bound(BH: int, S: int, D: int):
+    """K1's bound: 4 BH S² D tensor-core flops (Q.Kᵀ, P.V), BH S² exps
+    and ~5 f32 operations per logit; q, k, v read, o and the f32 row
+    statistic written once."""
+    return bound(
+        {"tensor": 4.0 * BH * S * S * D / BF16_TENSOR_FLOPS,
+         "exp": BH * S * S / SFU_EXP_PER_S,
+         "f32": 5.0 * BH * S * S / F32_FLOPS},
+        4 * BH * S * D * 2 + BH * S * 4)
+
+
 def k1b_bound(BH: int, S: int, D: int):
     """K1ᵇ's bound: 10 BH S² D tensor-core flops (Q.Kᵀ, dO.Vᵀ, dS.K,
     dSᵀ.Q, Pᵀ.dO), BH S² exps and ~5 f32 operations per logit; q, k, v,
-    o, dO read and dq, dk, dv written once."""
+    o, dO and the f32 row statistic read and dq, dk, dv written once."""
     return bound(
         {"tensor": 10.0 * BH * S * S * D / BF16_TENSOR_FLOPS,
          "exp": BH * S * S / SFU_EXP_PER_S,
          "f32": 5.0 * BH * S * S / F32_FLOPS},
-        8 * BH * S * D * 2)
+        8 * BH * S * D * 2 + BH * S * 4)
 
 
 def row_errors(ours, ref):
@@ -206,15 +230,38 @@ def row_errors(ours, ref):
     return err, rel
 
 
-def check_k1b(q, k, v, o, do, scale, what):
-    """K1ᵇ vs its plain version; returns the max abs error over dq, dk,
-    dv and the tolerance it was held to."""
+def check_k1(q, k, v, scale, what):
+    """K1 (with its row statistic) vs its plain version; returns the
+    kernel's o and lse, the max abs errors of o and lse and the
+    tolerances they were held to."""
+    import torch
+
+    from lgm_tpu_torch.ops.mha import mha_fwd, mha_reference
+
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+        ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
+    torch.cuda.synchronize()
+    err = float((o.float() - ref.float()).abs().max())
+    tol = K1_REL_TOL * float(ref.float().abs().max())
+    lse_err = float((lse - ref_lse).abs().max())
+    lse_tol = K1_LSE_REL_TOL * max(1.0, float(ref_lse.abs().max()))
+    if not (err <= tol and lse_err <= lse_tol):
+        raise AssertionError(f"K1 {what}: max abs err {err} (tol {tol}), "
+                             f"lse {lse_err} (tol {lse_tol})")
+    return o, lse, err, tol, lse_err, lse_tol
+
+
+def check_k1b(q, k, v, o, do, scale, lse, what):
+    """K1ᵇ vs its plain version, both fed K1's row statistic ``lse``;
+    returns the max abs error over dq, dk, dv and the tolerance it was
+    held to."""
     import torch
 
     from lgm_tpu_torch.ops.mha import mha_bwd, mha_bwd_reference
 
-    ours = mha_bwd(q, k, v, o, do, scale)
-    ref = mha_bwd_reference(q, k, v, o, do, scale)
+    ours = mha_bwd(q, k, v, o, do, scale, lse)
+    ref = mha_bwd_reference(q, k, v, o, do, scale, lse)
     torch.cuda.synchronize()
     worst, tol_worst = 0.0, 0.0
     for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
@@ -292,62 +339,97 @@ def bench_scene(dev):
     return g, view
 
 
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each kernel in a ``ptxas -v`` log, by
+    kernel name and template arguments (``mha_fwd_kernel<32,2,4>``)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.findall(r"\d+([A-Za-z_]+kernel)", mangled)
+            args = ",".join(re.findall(r"Li(\d+)E", mangled))
+            name = (base[-1] if base else mangled) + (
+                f"<{args}>" if args else "")
+            out[name] = {}
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            out[name]["spill_stores"] = int(spill.group(1))
+            out[name]["spill_loads"] = int(spill.group(2))
+        if name and regs:
+            out[name]["registers"] = int(regs.group(1))
+    return out
+
+
 def phase_build():
     from lgm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build()
     seconds = time.perf_counter() - t0
-    ptxas = {}
-    for name, so in libs.items():
-        log = so.with_name(so.name + ".log").read_text().splitlines()
-        ptxas[name] = [ln.strip() for ln in log if "registers" in ln]
+    ptxas = {name: ptxas_summary(so.with_name(so.name + ".log").read_text())
+             for name, so in libs.items()}
     emit("build", seconds=seconds, kernels=sorted(libs), ptxas=ptxas)
 
 
 def phase_k1(dev):
+    """K1 with its row statistic at the three (BH, S, D) of one B = 1
+    forward (``K1_SHAPES``) and of the bs2 train step (``K1B_SHAPES``),
+    against its plain version and beside SDPA's forward. Returns the
+    per-forward sums for the ``kernels`` line and the per-step sums."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from lgm_tpu_torch.ops.mha import mha_fwd, mha_reference
 
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    worst_err, bound_by = 0.0, "operations"
-    for (BH, S, D), sites in K1_SHAPES:
-        rng = np.random.default_rng(S + D)
-        q, k, v = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
-                                   dtype=torch.float32, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        scale = float(D) ** -0.5
-        with torch.inference_mode():
-            o = mha_fwd(q, k, v, scale)
-            ref = mha_reference(q, k, v, scale)
-            torch.cuda.synchronize()
-            err = float((o.float() - ref.float()).abs().max())
-            tol = K1_REL_TOL * float(ref.float().abs().max())
-            if not err <= tol:
-                raise AssertionError(f"K1 {BH}x{S}x{D}: max abs err {err} "
-                                     f"> {tol}")
-            ms = cuda_ms(lambda: mha_fwd(q, k, v, scale))
-            plain_ms = cuda_ms(lambda: mha_reference(q, k, v, scale))
-            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], scale=scale))
-        b_ms, b_by = bound(
-            {"tensor": 4.0 * BH * S * S * D / BF16_TENSOR_FLOPS,
-             "exp": BH * S * S / SFU_EXP_PER_S,
-             "f32": 5.0 * BH * S * S / F32_FLOPS},
-            4 * BH * S * D * 2)
-        emit("k1", shape=[BH, S, D], sites=sites, max_abs_err=err, tol=tol,
-             kernel_ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-             bound_us=b_ms * 1e3, bound_by=b_by)
-        worst_err = max(worst_err, err)
-        for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                         ("library_ms", sdpa_ms), ("bound_ms", b_ms)):
-            total[key] += sites * val
-        if S == 4096:
-            bound_by = b_by
-    return dict(max_abs_err=worst_err, bound_by=bound_by, **total)
+    sums = {}
+    for per, shapes in (("forward", K1_SHAPES), ("step", K1B_SHAPES)):
+        total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        worst_err, bound_by = 0.0, "operations"
+        for (BH, S, D), sites in shapes:
+            rng = np.random.default_rng(S + D)
+            q, k, v = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
+                                       dtype=torch.float32, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            scale = float(D) ** -0.5
+            _, _, err, tol, lse_err, lse_tol = check_k1(q, k, v, scale,
+                                                        f"{BH}x{S}x{D}")
+            with torch.inference_mode():
+                # Device times (K1_LAUNCHES back to back); in training the
+                # kernel writes the statistic too.
+                ms = cuda_ms(lambda: mha_fwd(q, k, v, scale,
+                                             return_lse=per == "step"),
+                             launches=K1_LAUNCHES)
+                plain_ms = cuda_ms(lambda: mha_reference(q, k, v, scale))
+                sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], scale=scale),
+                    launches=K1_LAUNCHES)
+            b_ms, b_by = k1_bound(BH, S, D)
+            emit("k1", per=per, shape=[BH, S, D], sites=sites,
+                 max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
+                 lse_tol=lse_tol, kernel_ms=ms, plain_ms=plain_ms,
+                 library_ms=sdpa_ms, kernel_over_library=ms / sdpa_ms,
+                 bound_us=b_ms * 1e3, bound_by=b_by)
+            worst_err = max(worst_err, err)
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", sdpa_ms), ("bound_ms", b_ms)):
+                total[key] += sites * val
+            if S == 4096:
+                bound_by = b_by
+        sums[per] = dict(max_abs_err=worst_err, bound_by=bound_by, **total)
+    emit("k1_sums", **{f"{per}_{key}": val for per, d in sums.items()
+                       for key, val in d.items()},
+         forward_kernel_over_library=sums["forward"]["ms"]
+         / sums["forward"]["library_ms"],
+         step_kernel_over_library=sums["step"]["ms"]
+         / sums["step"]["library_ms"])
+    return sums["forward"]
 
 
 def phase_k2(dev):
@@ -385,14 +467,14 @@ def phase_k2(dev):
 
 
 def phase_k1_bwd(dev):
-    """K1ᵇ at the three (BH, S, D) of the big bs2 train step, against its
-    plain version and beside the backward of SDPA (through autograd)."""
+    """K1ᵇ at the three (BH, S, D) of the big bs2 train step, fed K1's
+    row statistic, against its plain version and beside the backward of
+    SDPA (through autograd, from SDPA's own stored statistics)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from lgm_tpu_torch.ops.mha import mha_bwd, mha_bwd_reference, \
-        mha_reference
+    from lgm_tpu_torch.ops.mha import mha_bwd, mha_bwd_reference, mha_fwd
 
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     worst_err, bound_by = 0.0, "operations"
@@ -403,27 +485,33 @@ def phase_k1_bwd(dev):
                        .to(torch.bfloat16) for _ in range(4))
         scale = float(D) ** -0.5
         with torch.no_grad():
-            o = mha_reference(q, k, v, scale)
-            err, tol = check_k1b(q, k, v, o, do, scale, f"{BH}x{S}x{D}")
-            ms = cuda_ms(lambda: mha_bwd(q, k, v, o, do, scale))
+            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+            err, tol = check_k1b(q, k, v, o, do, scale, lse,
+                                 f"{BH}x{S}x{D}")
+            ms = cuda_ms(lambda: mha_bwd(q, k, v, o, do, scale, lse),
+                         launches=K1_LAUNCHES)
             plain_ms = cuda_ms(lambda: mha_bwd_reference(q, k, v, o, do,
-                                                         scale), reps=5)
+                                                         scale, lse), reps=5)
         qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
         out = F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
                                              scale=scale)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, (qs, ks, vs), do[None], retain_graph=True))
+            out, (qs, ks, vs), do[None], retain_graph=True),
+            launches=K1_LAUNCHES)
         del out, qs, ks, vs
         b_ms, b_by = k1b_bound(BH, S, D)
         emit("k1_bwd", shape=[BH, S, D], sites=sites, max_abs_err=err,
              tol=tol, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-             bound_us=b_ms * 1e3, bound_by=b_by)
+             kernel_over_library=ms / lib_ms, bound_us=b_ms * 1e3,
+             bound_by=b_by)
         worst_err = max(worst_err, err)
         for key, val in (("ms", ms), ("plain_ms", plain_ms),
                          ("library_ms", lib_ms), ("bound_ms", b_ms)):
             total[key] += sites * val
         if S == 4096:
             bound_by = b_by
+    emit("k1_bwd_sums", **total,
+         step_kernel_over_library=total["ms"] / total["library_ms"])
     return dict(max_abs_err=worst_err, bound_by=bound_by, **total)
 
 
@@ -682,9 +770,9 @@ def phase_train(dev):
     orig_comp_back = fs._Composite.backward
 
     def spy_mha_back(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         if q.shape[1] >= captured.get("k1_S", 0):
-            captured.update(k1=(q, k, v, o, do.contiguous(), ctx.scale),
+            captured.update(k1=(q, k, v, o, do.contiguous(), ctx.scale, lse),
                             k1_S=q.shape[1])
         return orig_mha_back(ctx, do)
 
@@ -720,17 +808,28 @@ def phase_train(dev):
 
     # The kernels on the step's own inputs (launches here are not counted
     # above: the counts were read already).
-    q, k, v, o, do, scale = captured["k1"]
+    q, k, v, o, do, scale, lse = captured["k1"]
     with torch.no_grad():
-        k1_err, k1_tol = check_k1b(q, k, v, o, do, scale, "train step")
-        k1_ms = cuda_ms(lambda: mha_mod.mha_bwd(q, k, v, o, do, scale))
+        # K1 on the site's own inputs; what it gives again is what the
+        # step saved (the kernel is deterministic).
+        o2, lse2, k1f_err, _, k1f_lse_err, _ = check_k1(q, k, v, scale,
+                                                        "train step")
+        if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+            raise AssertionError("K1 on the step's inputs differs from the "
+                                 "step's own o or lse")
+        del o2, lse2
+        k1_err, k1_tol = check_k1b(q, k, v, o, do, scale, lse, "train step")
+        k1_ms = cuda_ms(lambda: mha_mod.mha_bwd(q, k, v, o, do, scale, lse),
+                        launches=K1_LAUNCHES)
         params, counts, fo, go, th, tw, tiles_x = captured["k2"]
         k2_err, k2_rel = check_k2b(params, counts, fo, go, th, tw, tiles_x,
                                    "train step")
         k2_ms = cuda_ms(lambda: fs.composite_bwd(params, counts, fo, go, th,
                                                  tw, tiles_x))
         work = fs.composite_work(params, counts, th, tw, tiles_x)
-    emit("train_kernels", k1_bwd_shape=list(q.shape), k1_bwd_max_abs_err=k1_err,
+    emit("train_kernels", k1_max_abs_err=k1f_err,
+         k1_lse_max_abs_err=k1f_lse_err,
+         k1_bwd_shape=list(q.shape), k1_bwd_max_abs_err=k1_err,
          k1_bwd_tol=k1_tol, k1_bwd_ms=k1_ms,
          k2_bwd_slots_total=int(counts.sum()), k2_bwd_live_pairs=work["pairs"],
          k2_bwd_used_pairs=work["used"], k2_bwd_max_abs_err=k2_err,
@@ -738,7 +837,7 @@ def phase_train(dev):
          k2_bwd_bound_us=k2b_bound(work, params.shape[2], counts,
                                    tw * tiles_x, params.shape[1])[0] * 1e3)
     captured.clear()
-    del q, k, v, o, do, params, counts, fo, go
+    del q, k, v, o, do, lse, params, counts, fo, go
 
     # The configuration `python -m lgm_tpu_torch.train big` runs by
     # default: the preset's U-Net recompute on (the same state, the flag

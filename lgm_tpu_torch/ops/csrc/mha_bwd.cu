@@ -3,396 +3,372 @@
 //
 // Replaces lgm_tpu/ops/mha.py::_bwd_kernel (via _mha_bwd, the VJP of
 // mha_kresident), the TPU's fused one-pass backward. The function is the
-// same: from the residuals q, k, v, o and the cotangent dO, per
-// (batch*head) it recomputes the exact softmax of the scaled logits (row
-// max over ALL keys, then the f32 row sum; no online rescaling), the
-// normalized f32 P, dP = dO.V^T, D = rowsum(dO o O) in f32 and
-// dS = P o (dP - D); dO, dS and P are rounded to bf16 before their
-// products, every product accumulates in f32, and
+// same: per (batch*head) the normalized f32 P of the exact softmax of the
+// scaled logits, dP = dO.V^T, D = rowsum(dO o O) in f32 and
+// dS = P o (dP - D); dS and P are rounded to bf16 before their products,
+// every product accumulates in f32, and
 //   dq = dS.K * scale,  dK = dS^T.Q * scale,  dV = P^T.dO
-// are rounded to bf16.
+// are rounded to bf16. The one difference is where P's statistics come
+// from: the TPU kernel recomputed the row max and sum (it stored none), this
+// one reads L = m + log(l) per row, which K1 wrote in the forward, and
+// takes P = exp(s - L) directly: equal to exp(s - m) / l up to f32
+// rounding.
 //
-// What bounds it on an H100: 8 * BH * S^2 * D tensor-core multiply-adds
-// (Q.K^T twice, dO.V^T twice, dS.K, dS^T.Q, P^T.dO; 2 flops each) are
-// cheap next to the exponentials: the simple design below evaluates
-// exp(logit - max) three times per logit (row sum, dq pass, dK/dV pass),
-// against one in the least work, on the SFUs (16 per clock per SM). It is
-// exp- and latency-bound.
+// What bounds it on an H100: 2 BH S^2 exps on the SFUs (one per logit in
+// each kernel below) and 14 BH S^2 D tensor-core flops (seven products:
+// Q.K^T and dO.V^T in each kernel, dS.K, dS^T.Q, P^T.dO), ~0.26 ms and
+// ~0.24 ms at S = 4096/D = 32, BH = 32 (from an H100 SXM's published
+// peaks at 700 W); the two overlap. Behind them come the shared-memory
+// reads of the B operands and the f32 arithmetic of dS.
 //
-// The simple design, two kernels because dK and dV sum over every query
-// block (the TPU carried them in VMEM scratch across its sequential grid;
-// blocks here run in parallel and in no order):
-//  (a) one block of 4 warps per (bh, 64-row query tile), each warp owning
-//      16 query rows with Q and dO fragments in registers (mha_fwd.cu's
-//      mma.sync m16n8k16 fragment layout). Pass 1 takes the exact row max,
-//      pass 2 the f32 row sum, then D = rowsum(dO o O); the three row
-//      statistics go to a [3, BH, S] f32 buffer (on the TPU such a
-//      1-wide residual padded 128x in VMEM; here it is 12 bytes a row).
-//      Pass 3 recomputes P, forms dP and dS and accumulates dq.
-//  (b) one block of 4 warps per (bh, 64-key tile), each warp owning 16
-//      keys with K and V fragments in registers; it walks the query tiles,
-//      recomputes S^T = K.Q^T and P^T from the stored statistics, forms
-//      dP^T = V.dO^T and dS^T, and accumulates dK and dV in registers.
-// No atomics; every output element is written once.
+// The design: two kernels, deterministic (no atomics; every output element
+// is written once), because dK and dV sum over every query tile and dq over
+// every key tile (the TPU carried dK, dV in VMEM scratch across its
+// sequential grid; blocks here run in parallel and in no order).
+//  (a) dq: a block of NW warps owns 16 * MT * NW query rows; each warp
+//      keeps the Q and dO fragments of its MT m-tiles in registers, and
+//      forms D = rowsum(dO o O) for its rows, which it also writes for (b).
+//      128-key K and V tiles stream through a 2-stage cp.async ring (the
+//      next tile's copy in flight while this one computes); per 16-key
+//      chunk: S = Q.K^T, dP = dO.V^T (K, V by ldmatrix), P = 2^(s c - L2)
+//      (one FMA and one ex2 per logit; c = scale log2e, L2 = L log2e), dS,
+//      and dq += bf16(dS).K with K by ldmatrix.trans from the same tile.
+//  (b) dK/dV: a block owns 16 * MT * NW keys, K and V fragments in
+//      registers; Q, dO and the rows' L and D tiles stream through the
+//      ring; per 16-query chunk: S^T = K.Q^T, dP^T = V.dO^T, P^T and dS^T
+//      with the column statistics in registers, dV += bf16(P^T).dO and
+//      dK += bf16(dS^T).Q, dO and Q by ldmatrix.trans.
+// Two exps per logit and seven products in all; nothing is transposed in
+// shared memory. (MT, NW) of each kernel is chosen by the caller so that
+// the grid fills the card at small S.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mha_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;   // rows per block (4 warps x 16)
-constexpr int kBK = 64;   // keys (kernel a) / queries (kernel b) per tile
-constexpr int kPad = 8;   // bf16 padding per shared row
+using namespace mha;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kBK = 128;  // keys (a) / queries (b) per tile
+constexpr int kStages = 2;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+template <int D, int MT, int NW>
+struct BwdConfig {
+  static constexpr int kThreads = NW * 32;
+  static constexpr int kRows = 16 * MT * NW;  // rows (a) / keys (b) a block
+  static constexpr int kTile = kBK * Tile<D>::kStride;  // bf16 elements
+  // (a): K and V rings; (b): Q and dO rings, then L and D rings (f32).
+  static constexpr int kSmemDq = 2 * kStages * kTile * 2;
+  static constexpr int kSmemDkv = kSmemDq + 2 * kStages * kBK * 4;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of one head, [row][d].
-template <int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16 (*dst)[D + kPad],
-                                           const __nv_bfloat16* src, int row0) {
-  for (int i = threadIdx.x; i < kBK * D / 8; i += blockDim.x) {
-    const int row = i / (D / 8), col = (i % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(&dst[row][col]) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + row) * D + col);
-  }
-}
-
-// The same rows transposed, [d][row]: the B operand of a product that
-// contracts over rows (two consecutive rows of one d are one word).
-template <int D>
-__device__ __forceinline__ void stage_rows_t(__nv_bfloat16 (*dst)[kBK + kPad],
-                                             const __nv_bfloat16* src, int row0) {
-  for (int i = threadIdx.x; i < kBK * D / 8; i += blockDim.x) {
-    const int row = i / (D / 8), col = (i % (D / 8)) * 8;
-    uint4 raw =
-        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + row) * D + col);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[col + j][row] = e[j];
-  }
-}
-
-// A fragments of a warp's 16 rows (r0 and r0 + 8 for this lane), all of D.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
-                                       const __nv_bfloat16* base, int r0, int t) {
-  const __nv_bfloat16* ra = base + (size_t)r0 * D;
-  const __nv_bfloat16* rb = ra + 8 * D;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    f[kk][0] = ld32(ra + c);
-    f[kk][1] = ld32(rb + c);
-    f[kk][2] = ld32(ra + c + 8);
-    f[kk][3] = ld32(rb + c + 8);
-  }
-}
-
-// c[n] = A (16 x D, fragments) . B^T for the 64 staged rows of B [row][d]:
-// C-fragment layout, c[n][0..1] row g, c[n][2..3] row g + 8, columns
-// n * 8 + 2t and + 1.
-template <int D>
-__device__ __forceinline__ void product_nt(float (&c)[kBK / 8][4],
-                                           const uint32_t (&af)[D / 16][4],
-                                           const __nv_bfloat16 (*bs)[D + kPad],
-                                           int g, int t) {
-#pragma unroll
-  for (int n = 0; n < kBK / 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      const __nv_bfloat16* br = &bs[n * 8 + g][kk * 16 + 2 * t];
-      const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-      mma_bf16_16816(c[n], af[kk], b);
-    }
-  }
-}
-
-// acc (16 x D) += bf16(x) (16 x 64, C-fragment layout) . B (64 x D), with B
-// staged transposed [d][row].
-template <int D>
-__device__ __forceinline__ void accumulate_nn(float (&acc)[D / 8][4],
-                                              const float (&x)[kBK / 8][4],
-                                              const __nv_bfloat16 (*bt)[kBK + kPad],
-                                              int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-        pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-        pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]),
-    };
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* br = &bt[n * 8 + g][kk * 16 + 2 * t];
-      const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-      mma_bf16_16816(acc[n], a, b);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, int r0, int t,
-                                           const float (&acc)[D / 8][4],
-                                           float mul) {
-  __nv_bfloat16* ra = base + (size_t)r0 * D;
-  __nv_bfloat16* rb = ra + 8 * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(ra + c) = pack_bf16(acc[n][0] * mul, acc[n][1] * mul);
-    *reinterpret_cast<uint32_t*>(rb + c) = pack_bf16(acc[n][2] * mul, acc[n][3] * mul);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// (a) Row statistics and dq, one 64-row query tile per block.
-template <int D>
-__global__ void __launch_bounds__(128)
-mha_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ o,
-                  const __nv_bfloat16* __restrict__ dout,
-                  __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
-                  int BH, int S, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBK][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBK][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 kt[D][kBK + kPad];
+// (a) D and dq, 16 * MT * NW query rows a block.
+template <int D, int MT, int NW>
+__global__ void __launch_bounds__(NW * 32)
+mha_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ o,
+                  const bf16* __restrict__ dout, const float* __restrict__ lse,
+                  bf16* __restrict__ dq, float* __restrict__ drow, int S,
+                  float scale) {
+  using C = BwdConfig<D, MT, NW>;
+  constexpr int RS = Tile<D>::kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kStages * C::kTile;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
   const size_t base = (size_t)blockIdx.y * S * D;
-  const __nv_bfloat16* kb = k + base;
-  const __nv_bfloat16* vb = v + base;
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g;  // rows r0 and r0 + 8
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+  const int r0 = blockIdx.x * C::kRows + warp * 16 * MT;
+  const int off_nt = ldsm_row(lane) * RS + ldsm_col(lane);
+  const int off_t = ldsm_t_row(lane) * RS + ldsm_t_col(lane);
+  const float c = scale * kLog2e;
 
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, q + base, r0, t);
-  load_a<D>(df, dout + base, r0, t);
-
-  // D = rowsum(dO o O) in f32 from the bf16 values.
-  float d0 = 0.f, d1 = 0.f;
-  {
-    const __nv_bfloat16* da = dout + base + (size_t)r0 * D;
-    const __nv_bfloat16* oa = o + base + (size_t)r0 * D;
-    for (int c = t; c < D; c += 4) {
-      d0 += __bfloat162float(da[c]) * __bfloat162float(oa[c]);
-      d1 += __bfloat162float(da[c + 8 * D]) * __bfloat162float(oa[c + 8 * D]);
+  const int nT = S / kBK;
+  auto issue = [&](int i) {
+    if (i < nT) {
+      const int st = i % kStages;
+      load_tile<D, kBK, C::kThreads>(ks + st * C::kTile, kb, i * kBK);
+      load_tile<D, kBK, C::kThreads>(vs + st * C::kTile, vb, i * kBK);
     }
-    d0 = quad_sum(d0);
-    d1 = quad_sum(d1);
-  }
-
-  float s[kBK / 8][4];
-
-  // Pass 1: exact row max over all keys.
-  float m0 = -INFINITY, m1 = -INFINITY;
-  for (int key0 = 0; key0 < S; key0 += kBK) {
-    __syncthreads();
-    stage_rows<D>(ks, kb, key0);
-    __syncthreads();
-    product_nt<D>(s, qf, ks, g, t);
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      m0 = fmaxf(m0, fmaxf(s[n][0] * scale, s[n][1] * scale));
-      m1 = fmaxf(m1, fmaxf(s[n][2] * scale, s[n][3] * scale));
-    }
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
 
-  // Pass 2: f32 row sum of exp(logit - max).
-  float l0 = 0.f, l1 = 0.f;
-  for (int key0 = 0; key0 < S; key0 += kBK) {
-    __syncthreads();
-    stage_rows<D>(ks, kb, key0);
-    __syncthreads();
-    product_nt<D>(s, qf, ks, g, t);
+  uint32_t qf[MT][D / 16][4], df[MT][D / 16][4];
+  float nl2[MT][2], dr[MT][2];  // -L log2e and D of rows g, g + 8
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      l0 += expf(s[n][0] * scale - m0) + expf(s[n][1] * scale - m0);
-      l1 += expf(s[n][2] * scale - m1) + expf(s[n][3] * scale - m1);
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  if (t == 0) {
-    const size_t row = (size_t)blockIdx.y * S + r0;
-    const size_t plane = (size_t)BH * S;
-    stats[row] = m0;
-    stats[row + 8] = m1;
-    stats[plane + row] = l0;
-    stats[plane + row + 8] = l1;
-    stats[2 * plane + row] = d0;
-    stats[2 * plane + row + 8] = d1;
-  }
-
-  // Pass 3: P, dP = dO.V^T, dS = P o (dP - D), dq += bf16(dS).K.
-  float acc[D / 8][4];
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = r0 + 16 * mt + g;
+    load_a<D>(qf[mt], q + base, r, t);
+    load_a<D>(df[mt], dout + base, r, t);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float dp[kBK / 8][4];
-  for (int key0 = 0; key0 < S; key0 += kBK) {
-    __syncthreads();
-    stage_rows<D>(ks, kb, key0);
-    stage_rows<D>(vs, vb, key0);
-    stage_rows_t<D>(kt, kb, key0);
-    __syncthreads();
-    product_nt<D>(s, qf, ks, g, t);
-    product_nt<D>(dp, df, vs, g, t);
+    for (int h = 0; h < 2; ++h) {
+      const size_t row = (size_t)blockIdx.y * S + r + 8 * h;
+      nl2[mt][h] = -lse[row] * kLog2e;
+      // D = rowsum(dO o O) in f32 from the bf16 values; lane t takes the
+      // columns 8t.. (and 32 + 8t.. at D = 64).
+      float d = 0.f;
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-      s[n][0] = expf(s[n][0] * scale - m0) / l0 * (dp[n][0] - d0);
-      s[n][1] = expf(s[n][1] * scale - m0) / l0 * (dp[n][1] - d0);
-      s[n][2] = expf(s[n][2] * scale - m1) / l1 * (dp[n][2] - d1);
-      s[n][3] = expf(s[n][3] * scale - m1) / l1 * (dp[n][3] - d1);
-    }
-    accumulate_nn<D>(acc, s, kt, g, t);
-  }
-  store_rows<D>(dq + base, r0, t, acc, scale);
-}
-
-// (b) dK and dV, one 64-key tile per block.
-template <int D>
-__global__ void __launch_bounds__(128)
-mha_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v,
-                   const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ stats,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                   int BH, int S, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kBK][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 ds_[kBK][D + kPad];
-  __shared__ __align__(16) __nv_bfloat16 qt[D][kBK + kPad];
-  __shared__ __align__(16) __nv_bfloat16 dt[D][kBK + kPad];
-  __shared__ float sm[kBK], sl[kBK], sd[kBK];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const __nv_bfloat16* qb = q + base;
-  const __nv_bfloat16* db = dout + base;
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g;  // keys r0 and r0 + 8
-  const size_t plane = (size_t)BH * S;
-  const float* st = stats + (size_t)blockIdx.y * S;
-
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, k + base, r0, t);
-  load_a<D>(vf, v + base, r0, t);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+      for (int c0 = 8 * t; c0 < D; c0 += 32) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + row * D + c0);
+        const uint4 b = *reinterpret_cast<const uint4*>(o + row * D + c0);
+        const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  float p[kBK / 8][4], dp[kBK / 8][4];
-  for (int q0 = 0; q0 < S; q0 += kBK) {
-    __syncthreads();
-    stage_rows<D>(qs, qb, q0);
-    stage_rows<D>(ds_, db, q0);
-    stage_rows_t<D>(qt, qb, q0);
-    stage_rows_t<D>(dt, db, q0);
-    for (int i = threadIdx.x; i < kBK; i += blockDim.x) {
-      sm[i] = st[q0 + i];
-      sl[i] = st[plane + q0 + i];
-      sd[i] = st[2 * plane + q0 + i];
-    }
-    __syncthreads();
-    product_nt<D>(p, kf, qs, g, t);   // S^T: rows = keys, columns = queries
-    product_nt<D>(dp, vf, ds_, g, t); // dP^T
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = n * 8 + 2 * t + (e & 1);
-        p[n][e] = expf(p[n][e] * scale - sm[j]) / sl[j];
-        dp[n][e] = p[n][e] * (dp[n][e] - sd[j]);
+        for (int e = 0; e < 4; ++e) {
+          const float2 fa = __bfloat1622float2(pa[e]);
+          const float2 fb = __bfloat1622float2(pb[e]);
+          d = fmaf(fa.x, fb.x, d);
+          d = fmaf(fa.y, fb.y, d);
+        }
       }
+      dr[mt][h] = quad_sum(d);
+      if (t == 0) drow[row] = dr[mt][h];
     }
-    accumulate_nn<D>(dv_acc, p, dt, g, t);   // dV += bf16(P^T) . dO
-    accumulate_nn<D>(dk_acc, dp, qt, g, t);  // dK += bf16(dS^T) . Q
   }
-  store_rows<D>(dk + base, r0, t, dk_acc, scale);
-  store_rows<D>(dv + base, r0, t, dv_acc, 1.f);
+
+  float acc[MT][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+
+  float s[MT][2][4], dp[MT][2][4];
+  for (int i = 0; i < nT; ++i) {
+    const int st = ring_advance<kStages>(i, issue);
+    const bf16* kt = ks + st * C::kTile;
+    const bf16* vt = vs + st * C::kTile;
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      product_nt<D, MT>(s, qf, kt + 16 * j * RS, off_nt);
+      product_nt<D, MT>(dp, df, vt + 16 * j * RS, off_nt);
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const float p = ex2(fmaf(s[mt][n][e], c, nl2[mt][h]));
+            s[mt][n][e] = p * (dp[mt][n][e] - dr[mt][h]);
+          }
+        to_a(a[mt], s[mt]);
+      }
+      accumulate_nn<D, MT>(acc, a, kt + 16 * j * RS, off_t);
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    store_rows<D>(dq + base, r0 + 16 * mt + g, t, acc[mt], scale, scale);
+}
+
+// (b) dK and dV, 16 * MT * NW keys a block.
+template <int D, int MT, int NW>
+__global__ void __launch_bounds__(NW * 32)
+mha_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ drow, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, int S, float scale) {
+  using C = BwdConfig<D, MT, NW>;
+  constexpr int RS = Tile<D>::kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kStages * C::kTile;
+  float* ls = reinterpret_cast<float*>(dos + kStages * C::kTile);
+  float* drs = ls + kStages * kBK;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const bf16* qb = q + base;
+  const bf16* db = dout + base;
+  const float* lb = lse + (size_t)blockIdx.y * S;
+  const float* drb = drow + (size_t)blockIdx.y * S;
+  const int r0 = blockIdx.x * C::kRows + warp * 16 * MT;  // keys
+  const int off_nt = ldsm_row(lane) * RS + ldsm_col(lane);
+  const int off_t = ldsm_t_row(lane) * RS + ldsm_t_col(lane);
+  const float c = scale * kLog2e;
+
+  const int nT = S / kBK;
+  auto issue = [&](int i) {
+    if (i < nT) {
+      const int st = i % kStages;
+      load_tile<D, kBK, C::kThreads>(qs + st * C::kTile, qb, i * kBK);
+      load_tile<D, kBK, C::kThreads>(dos + st * C::kTile, db, i * kBK);
+      load_row_stat<kBK, C::kThreads>(ls + st * kBK, lb, i * kBK);
+      load_row_stat<kBK, C::kThreads>(drs + st * kBK, drb, i * kBK);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  uint32_t kf[MT][D / 16][4], vf[MT][D / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    load_a<D>(kf[mt], k + base, r0 + 16 * mt + g, t);
+    load_a<D>(vf[mt], v + base, r0 + 16 * mt + g, t);
+  }
+
+  float dk_acc[MT][D / 8][4], dv_acc[MT][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[mt][n][e] = dv_acc[mt][n][e] = 0.f;
+
+  float s[MT][2][4], dp[MT][2][4];
+  for (int i = 0; i < nT; ++i) {
+    const int st = ring_advance<kStages>(i, issue);
+    const bf16* qt = qs + st * C::kTile;
+    const bf16* dt = dos + st * C::kTile;
+    const float* lt = ls + st * kBK;
+    const float* drt = drs + st * kBK;
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      product_nt<D, MT>(s, kf, qt + 16 * j * RS, off_nt);   // S^T
+      product_nt<D, MT>(dp, vf, dt + 16 * j * RS, off_nt);  // dP^T
+      // Statistics of this thread's query columns 16 j + 8 n + 2 t, + 1.
+      float2 nl2[2], dr[2];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int col = 16 * j + 8 * n + 2 * t;
+        const float2 L = *reinterpret_cast<const float2*>(lt + col);
+        nl2[n] = make_float2(-L.x * kLog2e, -L.y * kLog2e);
+        dr[n] = *reinterpret_cast<const float2*>(drt + col);
+      }
+      uint32_t ap[MT][4], ads[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = ex2(fmaf(s[mt][n][e], c,
+                                     (e & 1) ? nl2[n].y : nl2[n].x));
+            s[mt][n][e] = p;
+            dp[mt][n][e] = p * (dp[mt][n][e] - ((e & 1) ? dr[n].y : dr[n].x));
+          }
+        to_a(ap[mt], s[mt]);
+        to_a(ads[mt], dp[mt]);
+      }
+      accumulate_nn<D, MT>(dv_acc, ap, dt + 16 * j * RS, off_t);
+      accumulate_nn<D, MT>(dk_acc, ads, qt + 16 * j * RS, off_t);
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = r0 + 16 * mt + g;
+    store_rows<D>(dk + base, r, t, dk_acc[mt], scale, scale);
+    store_rows<D>(dv + base, r, t, dv_acc[mt], 1.f, 1.f);
+  }
+}
+
+struct Args {
+  const bf16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  bf16 *dq, *dk, *dv;
+  float* drow;
+  int BH, S;
+  float scale;
+  cudaStream_t st;
+  int device;
+};
+
+template <int D, int MT, int NW>
+int launch_dq(const Args& a) {
+  using C = BwdConfig<D, MT, NW>;
+  if (a.S % C::kRows != 0) return (int)cudaErrorInvalidValue;
+  static bool smem_set[64];
+  const cudaError_t err =
+      allow_smem((const void*)mha_bwd_dq_kernel<D, MT, NW>, C::kSmemDq,
+                 a.device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  mha_bwd_dq_kernel<D, MT, NW>
+      <<<dim3(a.S / C::kRows, a.BH), C::kThreads, C::kSmemDq, a.st>>>(
+          a.q, a.k, a.v, a.o, a.dout, a.lse, a.dq, a.drow, a.S, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int MT, int NW>
+int launch_dkv(const Args& a) {
+  using C = BwdConfig<D, MT, NW>;
+  if (a.S % C::kRows != 0) return (int)cudaErrorInvalidValue;
+  static bool smem_set[64];
+  const cudaError_t err =
+      allow_smem((const void*)mha_bwd_dkv_kernel<D, MT, NW>, C::kSmemDkv,
+                 a.device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  mha_bwd_dkv_kernel<D, MT, NW>
+      <<<dim3(a.S / C::kRows, a.BH), C::kThreads, C::kSmemDkv, a.st>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.drow, a.dk, a.dv, a.S, a.scale);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-           const __nv_bfloat16* v, const __nv_bfloat16* o,
-           const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk,
-           __nv_bfloat16* dv, float* stats, int BH, int S, float scale,
-           cudaStream_t st) {
-  const dim3 grid(S / kBQ, BH);
-  mha_bwd_dq_kernel<D><<<grid, 128, 0, st>>>(q, k, v, o, dout, dq, stats, BH,
-                                             S, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mha_bwd_dkv_kernel<D><<<grid, 128, 0, st>>>(q, k, v, dout, stats, dk, dv,
-                                              BH, S, scale);
-  return (int)cudaGetLastError();
+int launch_d(const Args& a, int mt_q, int nw_q, int mt_kv, int nw_kv) {
+#define K1B_CASE(launch, MT, NW) \
+  case MT * 10 + NW:             \
+    err = launch<D, MT, NW>(a);  \
+    break;
+  int err = (int)cudaErrorInvalidValue;
+  switch (mt_q * 10 + nw_q) {
+    K1B_CASE(launch_dq, 2, 8) K1B_CASE(launch_dq, 2, 4)
+    K1B_CASE(launch_dq, 1, 8) K1B_CASE(launch_dq, 1, 4)
+    K1B_CASE(launch_dq, 1, 2) K1B_CASE(launch_dq, 1, 1)
+  }
+  if (err != 0) return err;
+  err = (int)cudaErrorInvalidValue;
+  switch (mt_kv * 10 + nw_kv) {
+    K1B_CASE(launch_dkv, 2, 8) K1B_CASE(launch_dkv, 2, 4)
+    K1B_CASE(launch_dkv, 1, 8) K1B_CASE(launch_dkv, 1, 4)
+    K1B_CASE(launch_dkv, 1, 2) K1B_CASE(launch_dkv, 1, 1)
+  }
+#undef K1B_CASE
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o, dout, dq, dk, dv: [BH, S, D] contiguous bf16; stats: [3, BH,
-// S] f32 scratch; all on device ``device``. D in {32, 64}; S a multiple of
-// 64. Launches both kernels on ``stream``; returns cudaGetLastError().
+// q, k, v, o, dout, dq, dk, dv: [BH, S, D] contiguous bf16, 16-byte
+// aligned; lse (K1's statistic): [BH, S] f32; drow: [BH, S] f32 scratch;
+// all on device ``device``. D in {32, 64}; S a multiple of 128 and of
+// each kernel's block rows 16 * mt * nw; scale > 0; (mt_q, nw_q) for the
+// dq kernel and (mt_kv, nw_kv) for the dK/dV kernel each in {(2, 8),
+// (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)}. Launches both kernels on
+// ``stream``; returns cudaGetLastError().
 int mha_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
-                 const void* dout, void* dq, void* dk, void* dv, void* stats,
-                 int BH, int S, int D, float scale, void* stream, int device) {
+                 const void* dout, const void* lse, void* dq, void* dk,
+                 void* dv, void* drow, int BH, int S, int D, float scale,
+                 int mt_q, int nw_q, int mt_kv, int nw_kv, void* stream,
+                 int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (S % kBQ != 0 || (D != 32 && D != 64)) return (int)cudaErrorInvalidValue;
-  const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v);
-  const auto* oo = static_cast<const __nv_bfloat16*>(o);
-  const auto* gg = static_cast<const __nv_bfloat16*>(dout);
-  auto* a = static_cast<__nv_bfloat16*>(dq);
-  auto* b = static_cast<__nv_bfloat16*>(dk);
-  auto* c = static_cast<__nv_bfloat16*>(dv);
-  auto* s = static_cast<float*>(stats);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch<32>(qq, kk, vv, oo, gg, a, b, c, s, BH, S, scale, st);
-  return launch<64>(qq, kk, vv, oo, gg, a, b, c, s, BH, S, scale, st);
+  if (S % kBK != 0 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v),    static_cast<const bf16*>(o),
+               static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+               static_cast<bf16*>(dq),         static_cast<bf16*>(dk),
+               static_cast<bf16*>(dv),         static_cast<float*>(drow),
+               BH, S, scale, static_cast<cudaStream_t>(stream), device};
+  if (D == 32) return launch_d<32>(a, mt_q, nw_q, mt_kv, nw_kv);
+  if (D == 64) return launch_d<64>(a, mt_q, nw_q, mt_kv, nw_kv);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* kernel_error_name(int err) {

@@ -5,20 +5,29 @@ versions.
 (``_fwd_kernel`` via ``_mha_fwd``): full unmasked attention over
 ``[BH, S, D]``, exact softmax (row max over all keys, no online
 rescaling), P rounded to the input dtype before P.V, f32 accumulation,
-output in the input dtype. On a CUDA tensor it launches the hand-written
-kernel in ``csrc/mha_fwd.cu`` (bf16, D in {32, 64}, S a multiple of 64)
-or raises; on a CPU tensor it runs ``mha_reference``, the same function
-in plain PyTorch.
+output in the input dtype. With ``return_lse`` it also returns the f32
+logsumexp L = m + log(l) of each row's scaled logits (m the row max, l
+the f32 sum of the unrounded P), ``[BH, S]``. On a CUDA tensor it
+launches the hand-written kernel in ``csrc/mha_fwd.cu`` (bf16, D in
+{32, 64}, S a multiple of 128, scale > 0) or raises; on a CPU tensor it
+runs ``mha_reference``, the same function in plain PyTorch.
 
 ``mha_bwd`` is the port of the backward (``_bwd_kernel`` via
-``_mha_bwd``): from the residuals q, k, v, o and the cotangent dO it
-recomputes the exact normalized P, forms dS = P∘(dO·Vᵀ − rowsum(dO∘O))
-with dO, dS and P rounded to the input dtype before their products, and
+``_mha_bwd``): from q, k, v, o, the forward's L and the cotangent dO it
+forms the normalized P = exp(s - L), dS = P∘(dO·Vᵀ − rowsum(dO∘O)) with
+dO, dS and P rounded to the input dtype before their products, and
 returns dq = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO in the input dtype.
 On a CUDA tensor it launches ``csrc/mha_bwd.cu``; on a CPU tensor it runs
-``mha_bwd_reference``. ``mha`` joins the two in an autograd Function,
-saving q, k, v, o as ``_mha_fwd`` does. Each kernel's design note and
-bound are in its source.
+``mha_bwd_reference``. ``mha`` joins the two in an autograd Function.
+Each kernel's design note and bound are in its source.
+
+The residuals are q, k, v, o **and L**, where ``_mha_fwd`` saves only q,
+k, v, o and its backward recomputes the row max and sum in two extra
+passes over the keys. That was the TPU's constraint: a ``[BH, S, 1]`` f32
+residual lane-pads 128× in VMEM (an OOM there). On the H100 L costs its
+4 bytes a row (~3.4 MB over the 16 sites of a bs2 step), and reading it
+saves K1ᵇ two passes of Q·Kᵀ and one exp per logit. P = exp(s − L)
+equals exp(s − m)/l up to f32 rounding, so the function is the same.
 
 The TPU kernel ran only at S >= 2048 (``lgm_tpu/models/unet.py:61-62``),
 a VMEM/HBM choice of that chip; the port runs the kernels at every
@@ -28,6 +37,7 @@ MVAttention site, since the function is the same at each.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,44 +45,71 @@ from lgm_tpu_torch.ops import _build
 
 _SIGNATURES = {
     "mha_fwd_bf16": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
 _BWD_SIGNATURES = {
     "mha_bwd_bf16": (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int],
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
-_BLOCK_Q = 64  # query (and key) rows per block; S must be a multiple
+_TILE = 128  # keys (queries) per staged tile; S must be a multiple
+# Block shapes each kernel is built for, as (m-tiles of 16 rows per warp,
+# warps per block), and each kernel's own list by D in order of preference,
+# as ``scripts/torch_mha_blocks.py`` measured them. At D = 64 two m-tiles
+# spill registers: a few in the dK/dV kernel (still the fastest there),
+# more in the dq kernel.
+_BUILT = ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1))
+_FWD_BLOCKS = {32: ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)),
+               64: ((2, 4), (1, 8), (1, 4), (1, 2), (1, 1))}
+_DQ_BLOCKS = {32: ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1)),
+              64: ((1, 8), (1, 4), (1, 2), (1, 1))}
+_DKV_BLOCKS = {32: ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1)),
+               64: ((2, 4), (1, 8), (1, 4), (1, 2), (1, 1))}
+
+
+def block_shape(blocks, BH: int, S: int, sms: int):
+    """The first (most preferred) block shape of ``blocks`` whose grid
+    still puts a block on every one of ``sms`` multiprocessors, else the
+    last: at S = 256 a 64-row block leaves half of an H100's 132 SMs
+    idle."""
+    for mt, nw in blocks:
+        rows = 16 * mt * nw
+        if S % rows == 0 and S // rows * BH >= sms:
+            return mt, nw
+    return blocks[-1]
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float) -> torch.Tensor:
-    """Plain version of K1: q/k/v [BH, S, D] -> [BH, S, D] in q's dtype."""
+                  scale: float, return_lse: bool = False):
+    """Plain version of K1: q/k/v [BH, S, D] -> [BH, S, D] in q's dtype,
+    and with ``return_lse`` also the f32 row logsumexp [BH, S]."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     s = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float()) / s
-    return o.to(q.dtype)
+    o = (torch.matmul(p.to(v.dtype).float(), v.float()) / s).to(q.dtype)
+    if return_lse:
+        return o, (m + torch.log(s)).squeeze(-1)
+    return o
 
 
-def mha_bwd_reference(q, k, v, o, do, scale: float):
+def mha_bwd_reference(q, k, v, o, do, scale: float, lse):
     """Plain version of K1ᵇ: (dq, dk, dv), each [BH, S, D] in q's dtype.
 
-    The arithmetic of ``lgm_tpu/ops/mha.py::_bwd_kernel``: P recomputed
-    exactly and normalized in f32; dO, dS and P rounded to the input dtype
-    before their products (bf16 on the card; no rounding at f32, where
-    this is the exact softmax-attention backward); f32 accumulation."""
+    The arithmetic of ``lgm_tpu/ops/mha.py::_bwd_kernel`` with P's
+    statistics read from the forward's ``lse``: P = exp(s − L) normalized
+    in f32; dO, dS and P rounded to the input dtype before their products
+    (bf16 on the card; no rounding at f32, where this is the exact
+    softmax-attention backward); f32 accumulation."""
     dt = q.dtype
     qf, kf = q.float(), k.float()
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    p = torch.exp(logits - lse.float().unsqueeze(-1))
     dob = do.to(dt).float()
     dp = torch.matmul(dob, v.float().transpose(-1, -2))
     drow = (do.float() * o.float()).sum(dim=-1, keepdim=True)
@@ -83,69 +120,92 @@ def mha_bwd_reference(q, k, v, o, do, scale: float):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def _check_kernel_inputs(what: str, ref: torch.Tensor, named) -> None:
-    BH, S, D = ref.shape
+def _check_kernel_inputs(what: str, ref: torch.Tensor, named,
+                         scale: float, lse=None) -> None:
+    shape, dev = ref.shape, ref.device
+    BH, S, D = shape
     for name, x in named:
-        if x.dtype != torch.bfloat16 or x.shape != ref.shape \
-                or not x.is_contiguous() or x.device != ref.device:
+        if x.dtype is not torch.bfloat16 or x.shape != shape \
+                or x.device != dev or not x.is_contiguous() \
+                or x.data_ptr() % 16:
             raise ValueError(
-                f"{what}: {name} must be a contiguous bf16 tensor of shape "
-                f"{tuple(ref.shape)} on {ref.device}, got {x.dtype} "
+                f"{what}: {name} must be a contiguous, 16-byte aligned bf16 "
+                f"tensor of shape {tuple(shape)} on {dev}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
-    if D not in (32, 64) or S % _BLOCK_Q:
+    if lse is not None and (lse.dtype is not torch.float32
+                            or lse.shape != (BH, S) or lse.device != dev
+                            or not lse.is_contiguous()):
         raise ValueError(
-            f"{what} kernel takes D in (32, 64) and S % {_BLOCK_Q} == 0, "
-            f"got D={D}, S={S}")
+            f"{what}: lse must be a contiguous f32 tensor of shape "
+            f"{(BH, S)} on {dev}, got {lse.dtype} {tuple(lse.shape)} on "
+            f"{lse.device}")
+    if D not in (32, 64) or S % _TILE or not scale > 0:
+        raise ValueError(
+            f"{what} kernel takes D in (32, 64), S % {_TILE} == 0 and "
+            f"scale > 0, got D={D}, S={S}, scale={scale}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float) -> torch.Tensor:
-    """K1 on a CUDA tensor, ``mha_reference`` on a CPU tensor."""
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"mha_fwd: unsupported device {q.device}")
+            scale: float, return_lse: bool = False):
+    """K1 on a CUDA tensor, ``mha_reference`` on a CPU tensor. Returns o,
+    or (o, lse) with ``return_lse`` (the kernel writes lse only then)."""
+    dev = q.device
+    if dev.type == "cpu":
+        return mha_reference(q, k, v, scale, return_lse)
+    if dev.type != "cuda":
+        raise ValueError(f"mha_fwd: unsupported device {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
             "mha_fwd has no gradient of its own: call mha(), whose backward "
             "is K1ᵇ")
-    _check_kernel_inputs("mha_fwd", q, (("q", q), ("k", k), ("v", v)))
+    _check_kernel_inputs("mha_fwd", q, (("q", q), ("k", k), ("v", v)), scale)
     BH, S, D = q.shape
     o = torch.empty_like(q)
+    lse = (torch.empty(BH, S, dtype=torch.float32, device=dev)
+           if return_lse else None)
+    mt, nw = block_shape(_FWD_BLOCKS[D], BH, S, _sms(dev))
     lib = _build.load("mha_fwd", _SIGNATURES)
     err = lib.mha_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), BH, S, D,
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        q.device.index)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), BH, S, D, float(scale), mt,
+        nw, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(lib, err, "mha_fwd")
     mha_fwd.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 mha_fwd.launches = 0
 
 
-def mha_bwd(q, k, v, o, do, scale: float):
-    """K1ᵇ on CUDA tensors, ``mha_bwd_reference`` on CPU tensors.
-    Returns (dq, dk, dv)."""
-    if q.device.type == "cpu":
-        return mha_bwd_reference(q, k, v, o, do, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"mha_bwd: unsupported device {q.device}")
+def mha_bwd(q, k, v, o, do, scale: float, lse):
+    """K1ᵇ on CUDA tensors, ``mha_bwd_reference`` on CPU tensors; ``lse``
+    is the forward's ``[BH, S]`` f32 statistic. Returns (dq, dk, dv)."""
+    dev = q.device
+    if dev.type == "cpu":
+        return mha_bwd_reference(q, k, v, o, do, scale, lse)
+    if dev.type != "cuda":
+        raise ValueError(f"mha_bwd: unsupported device {dev}")
     _check_kernel_inputs("mha_bwd", q, (("q", q), ("k", k), ("v", v),
-                                        ("o", o), ("do", do)))
+                                        ("o", o), ("do", do)), scale, lse)
     BH, S, D = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # Row statistics of the recomputed softmax (max, sum, rowsum(dO∘O)),
-    # written by the dq pass and read by the dK/dV pass.
-    stats = torch.empty(3, BH, S, dtype=torch.float32, device=q.device)
+    # rowsum(dO∘O), written by the dq kernel and read by the dK/dV kernel.
+    drow = torch.empty(BH, S, dtype=torch.float32, device=dev)
+    sms = _sms(dev)
+    mt_q, nw_q = block_shape(_DQ_BLOCKS[D], BH, S, sms)
+    mt_kv, nw_kv = block_shape(_DKV_BLOCKS[D], BH, S, sms)
     lib = _build.load("mha_bwd", _BWD_SIGNATURES)
     err = lib.mha_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), BH, S, D, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream, q.device.index)
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), drow.data_ptr(), BH, S, D, float(scale), mt_q, nw_q,
+        mt_kv, nw_kv, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(lib, err, "mha_bwd")
     mha_bwd.launches += 1
     return dq, dk, dv
@@ -155,19 +215,20 @@ mha_bwd.launches = 0
 
 
 class _MHA(torch.autograd.Function):
-    """K1 forward, K1ᵇ backward; residuals q, k, v, o (``_mha_fwd``)."""
+    """K1 forward, K1ᵇ backward; residuals q, k, v, o and the f32 row
+    logsumexp (``_mha_fwd`` saves no statistic: see the module note)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        o = mha_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = mha_bwd(q, k, v, o, do.contiguous(), ctx.scale)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = mha_bwd(q, k, v, o, do.contiguous(), ctx.scale, lse)
         return dq, dk, dv, None
 
 

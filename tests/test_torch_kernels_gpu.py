@@ -32,31 +32,77 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("S,D", [(256, 32), (512, 64), (4096, 32)])
-def test_mha_fwd_kernel_matches_plain(cuda, S, D):
+# The three (BH, S, D) of K1ᵇ in the LGM-big bs2 step (K1 at B = 1 runs
+# BH = 16), and two small odd ones that take other block shapes.
+MHA_SHAPES = [(16, 4096, 32), (32, 1024, 64), (32, 256, 64), (3, 256, 32),
+              (3, 512, 64)]
+# Two bf16 rounding steps of the output scale (sums in other orders; in
+# K1ᵇ bf16 dS and P may round the other way).
+K1_REL_TOL = 2.0 ** -7
+# K1's statistic against the plain version's: both f32, from logits summed
+# in other orders and (in the kernel) ex2.approx: 1e-5 of max(1, |L|).
+K1_LSE_REL_TOL = 1e-5
+
+
+def _close(a, b, rel=K1_REL_TOL, floor=0.0):
+    """Max abs error within ``rel`` of max(the largest |b|, ``floor``)."""
+    err = (a.float() - b.float()).abs().max().item()
+    assert err <= rel * max(b.float().abs().max().item(), floor), err
+
+
+@pytest.mark.parametrize("BH,S,D", MHA_SHAPES)
+def test_mha_fwd_kernel_matches_plain(cuda, BH, S, D):
     rng = np.random.default_rng(S + D)
-    q, k, v = (torch.as_tensor(rng.normal(0, 1, (3, S, D)),
-                               dtype=torch.float32, device=cuda)
-               .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (_bf16(rng, (BH, S, D), cuda) for _ in range(3))
     before = mha_fwd.launches
     with torch.inference_mode():
-        o = mha_fwd(q, k, v, D ** -0.5)
-        ref = mha_reference(q, k, v, D ** -0.5)
+        o, lse = mha_fwd(q, k, v, D ** -0.5, return_lse=True)
+        ref, ref_lse = mha_reference(q, k, v, D ** -0.5, return_lse=True)
+        o_only = mha_fwd(q, k, v, D ** -0.5)
     torch.cuda.synchronize()
-    assert mha_fwd.launches == before + 1
-    # Two bf16 rounding steps of the output scale (different sum orders).
-    err = (o.float() - ref.float()).abs().max().item()
-    assert err <= 2.0 ** -7 * ref.float().abs().max().item(), err
+    assert mha_fwd.launches == before + 2
+    assert lse.dtype == torch.float32 and lse.shape == (BH, S)
+    _close(o, ref)
+    _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+    assert torch.equal(o_only, o)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_mha_kernels_agree_across_block_shapes(cuda, D, monkeypatch):
+    """Every block shape each kernel is built for, against the plain
+    versions (the main path's shapes take only some of them)."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    rng = np.random.default_rng(5)
+    q, k, v, do = (_bf16(rng, (2, 256, D), cuda) for _ in range(4))
+    scale = D ** -0.5
+    with torch.no_grad():
+        ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
+        for shape in mha_mod._BUILT:
+            for name in ("_FWD_BLOCKS", "_DQ_BLOCKS", "_DKV_BLOCKS"):
+                monkeypatch.setitem(getattr(mha_mod, name), D, (shape,))
+            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+            _close(o, ref)
+            _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+            for a, b in zip(mha_bwd(q, k, v, o, do, scale, lse),
+                            mha_bwd_reference(q, k, v, o, do, scale, lse)):
+                _close(a, b)
 
 
 def test_mha_fwd_kernel_refuses_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 64, 48, dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros(1, 128, 48, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         mha_fwd(x, x, x, 1.0)  # D = 48
-    y = torch.zeros(1, 64, 32, device=cuda)
+    y = torch.zeros(1, 128, 32, device=cuda)
     with pytest.raises(ValueError):
         mha_fwd(y, y, y, 1.0)  # f32
-    z = torch.zeros(1, 64, 32, dtype=torch.bfloat16, device=cuda,
+    w = torch.zeros(1, 192, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(w, w, w, 1.0)  # S % 128
+    u = torch.zeros(1, 128, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(u, u, u, -1.0)  # scale <= 0
+    z = torch.zeros(1, 128, 32, dtype=torch.bfloat16, device=cuda,
                     requires_grad=True)
     with pytest.raises(NotImplementedError):
         mha_fwd(z, z, z, 1.0)
@@ -96,25 +142,36 @@ def _bf16(rng, shape, dev):
                            device=dev).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("BH,S,D", [(2, 256, 32), (2, 256, 64),
-                                    (4, 1024, 64), (2, 4096, 32)])
+@pytest.mark.parametrize("BH,S,D", MHA_SHAPES)
 def test_mha_bwd_kernel_matches_plain(cuda, BH, S, D):
-    """K1ᵇ vs its plain version from the same residuals: bf16 gradients,
-    f32 sums in other orders and bf16 dS / P that may round the other way,
-    so two rounding steps of each gradient's scale."""
+    """K1ᵇ vs its plain version from the same inputs and K1's statistic:
+    bf16 gradients, f32 sums in other orders and bf16 dS / P that may
+    round the other way, so two rounding steps of each gradient's scale."""
     rng = np.random.default_rng(S + D)
     q, k, v, do = (_bf16(rng, (BH, S, D), cuda) for _ in range(4))
     scale = D ** -0.5
-    o = mha_reference(q, k, v, scale)
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, scale, return_lse=True)
     before = mha_bwd.launches
-    ours = mha_bwd(q, k, v, o, do, scale)
-    ref = mha_bwd_reference(q, k, v, o, do, scale)
+    ours = mha_bwd(q, k, v, o, do, scale, lse)
+    ref = mha_bwd_reference(q, k, v, o, do, scale, lse)
     torch.cuda.synchronize()
     assert mha_bwd.launches == before + 1
     for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
-        assert a.dtype == torch.bfloat16 and a.shape == b.shape
-        err = (a.float() - b.float()).abs().max().item()
-        assert err <= 2.0 ** -7 * b.float().abs().max().item(), (name, err)
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        _close(a, b)
+
+
+def test_mha_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two runs on the same inputs give the same bits."""
+    rng = np.random.default_rng(6)
+    q, k, v, do = (_bf16(rng, (32, 1024, 64), cuda) for _ in range(4))
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
+    first = mha_bwd(q, k, v, o, do, 0.125, lse)
+    second = mha_bwd(q, k, v, o, do, 0.125, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_mha_autograd_launches_both_kernels(cuda):
@@ -123,27 +180,35 @@ def test_mha_autograd_launches_both_kernels(cuda):
                for _ in range(3))
     g = _bf16(rng, (2, 512, 32), cuda)
     f0, b0 = mha_fwd.launches, mha_bwd.launches
-    (mha(q, k, v, 32 ** -0.5).float() * g.float()).sum().backward()
+    out = mha(q, k, v, 32 ** -0.5)
+    lse = out.grad_fn.saved_tensors[4]
+    (out.float() * g.float()).sum().backward()
     torch.cuda.synchronize()
     assert (mha_fwd.launches, mha_bwd.launches) == (f0 + 1, b0 + 1)
     with torch.no_grad():
-        o = mha_reference(q, k, v, 32 ** -0.5)
-        ref = mha_bwd_reference(q, k, v, o, g, 32 ** -0.5)
+        o, ref_lse = mha_reference(q, k, v, 32 ** -0.5, return_lse=True)
+        _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+        ref = mha_bwd_reference(q, k, v, o, g, 32 ** -0.5, ref_lse)
     for a, b in zip((q.grad, k.grad, v.grad), ref):
-        err = (a.float() - b.float()).abs().max().item()
-        assert err <= 2.0 ** -7 * b.float().abs().max().item()
+        _close(a, b)
 
 
 def test_mha_bwd_kernel_refuses_what_it_does_not_take(cuda):
-    x = torch.zeros(1, 64, 48, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 128, device=cuda)
+    x = torch.zeros(1, 128, 48, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
-        mha_bwd(x, x, x, x, x, 1.0)  # D = 48
-    y = torch.zeros(1, 64, 32, device=cuda)
+        mha_bwd(x, x, x, x, x, 1.0, lse)  # D = 48
+    y = torch.zeros(1, 128, 32, device=cuda)
     with pytest.raises(ValueError):
-        mha_bwd(y, y, y, y, y, 1.0)  # f32
-    z = torch.zeros(1, 100, 32, dtype=torch.bfloat16, device=cuda)
+        mha_bwd(y, y, y, y, y, 1.0, lse)  # f32
+    z = torch.zeros(1, 192, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
-        mha_bwd(z, z, z, z, z, 1.0)  # S % 64
+        mha_bwd(z, z, z, z, z, 1.0, torch.zeros(1, 192, device=cuda))  # S % 128
+    w = torch.zeros(1, 128, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        mha_bwd(w, w, w, w, w, 1.0, lse.double())  # lse not f32
+    with pytest.raises(ValueError):
+        mha_bwd(w, w, w, w, w, 1.0, lse[:, :64])  # lse not [BH, S]
 
 
 def _scene(n, rng, opaque=0):
