@@ -5,10 +5,12 @@ Run from the root of a checkout, with one card visible:
 
     python3 chip_smoke.py
 
-It builds the port's kernels from the sources in the checkout, holds each
-against its plain PyTorch version at the shapes its path gives it, times
-both, and drives the port's three paths, each with the launch counts set
-to 0 just before it and read just after:
+It builds the port's kernels from the sources in the checkout (and counts
+the compositors' shuffles and shared loads in their SASS), holds each
+against its plain PyTorch version at the shapes its path gives it (K2ᵇ
+and K3ᵇ fed the chunk-boundary state their forward writes, and run twice
+for the same bits), times both, and drives the port's three paths, each
+with the launch counts set to 0 just before it and read just after:
 
 - inference: LGM ``big`` at full width with seeded weights, forward ->
   .ply -> 180-frame orbit at 512² (kernels K1, K2);
@@ -64,10 +66,18 @@ K1_REL_TOL = 2.0 ** -7
 # and sums taken in other orders (and ex2.approx in the kernel): 1e-5 of
 # max(1, the largest |L|).
 K1_LSE_REL_TOL = 1e-5
-# K1, K1ᵇ and SDPA are timed over this many calls back to back (see
-# cuda_ms): their device time, which the host's time to enqueue one call
-# (longer than the kernels' at S = 256) would otherwise hide.
+# K1, K1ᵇ, SDPA, K2ᵇ and K3ᵇ are timed over this many calls back to back
+# (see cuda_ms): their device time, which the host's time to enqueue one
+# call (longer than the kernels' at S = 256) would otherwise hide.
 K1_LAUNCHES = 10
+# K2ᵇ's and K3ᵇ's times a bench view (ms) in their first design (one
+# thread a pixel, one block a tile, 50 shuffles a warp and slot), measured
+# by this script on NVIDIA H100 80GB HBM3 at 700 W over four runs, one
+# call a sample: printed beside the new times.
+PREVIOUS_MS = {"k2_bwd": (1.145, 1.227), "k3_bwd": (0.974, 1.030)}
+# Streaming multiprocessors of an H100 SXM: the unit of the tile-balance
+# figures (tile_balance).
+N_SM = 132
 # K2 tolerance: f32 sums in another order (and FMA contraction), plus the
 # tile early-out at T <= 1e-4, which may flip at the threshold: at most
 # 1e-4 of a value <= 2.5 (the depth row).
@@ -275,19 +285,53 @@ def check_k1b(q, k, v, o, do, scale, lse, what):
     return worst, tol_worst
 
 
-def check_k2b(params, counts, fo, go, th, tw, tiles_x, what):
+def check_k2b(params, counts, fo, go, state, th, tw, tiles_x, what):
+    """K2ᵇ fed K2's ``state`` vs its plain version's replay (which reads no
+    state), per gradient row; two K2ᵇ runs must give the same bits.
+    Returns the max abs error and the worst row's relative error."""
     import torch
 
     from lgm_tpu_torch.ops.gsplat import flatsort as fs
 
-    ours = fs.composite_bwd(params, counts, fo, go, th, tw, tiles_x)
+    ours = fs.composite_bwd(params, counts, fo, go, th, tw, tiles_x,
+                            state=state)
+    again = fs.composite_bwd(params, counts, fo, go, th, tw, tiles_x,
+                             state=state)
     ref = fs.composite_bwd_reference(params, counts, fo, go, th, tw, tiles_x)
     torch.cuda.synchronize()
+    if not torch.equal(ours, again):
+        raise AssertionError(f"K2ᵇ {what}: two runs differ")
     err, rel = row_errors(ours, ref)
     if not rel <= K2B_REL_TOL:
         raise AssertionError(f"K2ᵇ {what}: a row's max error is {rel} of "
                              f"its scale > {K2B_REL_TOL}")
     return err, rel
+
+
+def tile_balance(tile_work, chunked: bool) -> dict:
+    """How far a view's work is from an even share of N_SM SMs: the end of
+    a longest-first schedule of whole tiles (one resident block an SM)
+    over the even share, and the same with each tile cut into its
+    128-slot chunks (when ``chunked``). ``tile_work`` holds each tile's
+    visited slots."""
+    import heapq
+
+    def makespan(units):
+        units = sorted((int(u) for u in units if u > 0), reverse=True)
+        sms = [0] * N_SM
+        for u in units:
+            heapq.heappush(sms, heapq.heappop(sms) + u)
+        return max(sms)
+
+    work = [int(w) for w in tile_work.tolist()]
+    even = sum(work) / N_SM
+    if even == 0:
+        return {"tiles_over_even": 1.0, "chunks_over_even": 1.0}
+    out = {"tiles_over_even": makespan(work) / even}
+    if chunked:
+        chunks = [min(128, w - c0) for w in work for c0 in range(0, w, 128)]
+        out["chunks_over_even"] = makespan(chunks) / even
+    return out
 
 
 def check_k3(params, counts, pf, what):
@@ -306,14 +350,19 @@ def check_k3(params, counts, pf, what):
     return out, err
 
 
-def check_k3b(params, counts, pf, fo, go, what):
+def check_k3b(params, counts, pf, fo, go, state, what):
+    """K3ᵇ fed K3's ``state`` vs its plain version's replay (which reads no
+    state), per gradient row; two K3ᵇ runs must give the same bits."""
     import torch
 
     from lgm_tpu_torch.ops.gsplat import tiled
 
-    ours = tiled.tile_composite_bwd(params, counts, pf, fo, go)
+    ours = tiled.tile_composite_bwd(params, counts, pf, fo, go, state)
+    again = tiled.tile_composite_bwd(params, counts, pf, fo, go, state)
     ref = tiled.tile_composite_bwd_reference(params, counts, pf, fo, go)
     torch.cuda.synchronize()
+    if not torch.equal(ours, again):
+        raise AssertionError(f"K3ᵇ {what}: two runs differ")
     # Rows of the [T, 16, K] gradient last, as row_errors takes them.
     err, rel = row_errors(ours.transpose(1, 2), ref.transpose(1, 2))
     if not rel <= K3B_REL_TOL:
@@ -340,24 +389,26 @@ def bench_scene(dev):
 
 
 def ptxas_summary(log: str) -> dict:
-    """Registers and spill bytes of each kernel in a ``ptxas -v`` log, by
-    kernel name and template arguments (``mha_fwd_kernel<32,2,4>``)."""
+    """Registers, stack frame and spill bytes of each kernel in a ``ptxas
+    -v`` log, by kernel name and template arguments
+    (``mha_fwd_kernel<32,2,4>``)."""
     import re
+
+    from lgm_tpu_torch.ops._build import short_name
 
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            mangled = entry.group(1)
-            base = re.findall(r"\d+([A-Za-z_]+kernel)", mangled)
-            args = ",".join(re.findall(r"Li(\d+)E", mangled))
-            name = (base[-1] if base else mangled) + (
-                f"<{args}>" if args else "")
+            name = short_name(entry.group(1))
             out[name] = {}
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
+        stack = re.search(r"(\d+) bytes stack frame", line)
         regs = re.search(r"Used (\d+) registers", line)
+        if name and stack:
+            out[name]["stack_frame"] = int(stack.group(1))
         if name and spill:
             out[name]["spill_stores"] = int(spill.group(1))
             out[name]["spill_loads"] = int(spill.group(2))
@@ -374,7 +425,13 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: ptxas_summary(so.with_name(so.name + ".log").read_text())
              for name, so in libs.items()}
-    emit("build", seconds=seconds, kernels=sorted(libs), ptxas=ptxas)
+    # Static SHFL and LDS counts of the compositors (None without
+    # cuobjdump).
+    sass = {name: _build.sass_counts(libs[name])
+            for name in ("composite_fwd", "composite_bwd", "tiled_fwd",
+                         "tiled_bwd")}
+    emit("build", seconds=seconds, kernels=sorted(libs), ptxas=ptxas,
+         sass=sass)
 
 
 def phase_k1(dev):
@@ -517,7 +574,10 @@ def phase_k1_bwd(dev):
 
 def phase_k2_bwd(dev):
     """K2ᵇ on the bench scene (view 0, 512², 65,536 splats, R = 9 as in
-    training) with a seeded cotangent, against its plain version."""
+    training) with a seeded cotangent, fed K2's chunk-boundary state: the
+    state against the plain K2's, K2ᵇ against its plain replay, two runs
+    bit for bit, the per-tile work and the blocks launched, and the time
+    over K1_LAUNCHES calls and over one."""
     import numpy as np
     import torch
 
@@ -532,21 +592,43 @@ def phase_k2_bwd(dev):
         params, counts = fs._prepare_view(g, view, S, tan, 1.0, th, tw, dup,
                                           mpt, False)
         args = (th, tw, S // tw)
-        fo = fs.composite_fwd(params, counts, *args)
+        fo, state = fs.composite_fwd(params, counts, *args, return_state=True)
+        _, ref_state = fs.composite_reference(params, counts, *args,
+                                              return_state=True)
+        torch.cuda.synchronize()
+        state_err = float((state - ref_state).abs().max())
+        if not state_err <= K2_ATOL:
+            raise AssertionError(f"K2 state: max abs err {state_err} > "
+                                 f"{K2_ATOL}")
+        del ref_state
         go = torch.as_tensor(np.random.default_rng(1).normal(
             0, 1, tuple(fo.shape)), dtype=torch.float32, device=dev)
-        err, rel = check_k2b(params, counts, fo, go, *args, "bench")
-        ms = cuda_ms(lambda: fs.composite_bwd(params, counts, fo, go, *args))
+        err, rel = check_k2b(params, counts, fo, go, state, *args, "bench")
+
+        def k2b():
+            return fs.composite_bwd(params, counts, fo, go, *args,
+                                    state=state)
+
+        ms = cuda_ms(k2b, launches=K1_LAUNCHES)
+        one_call_ms = cuda_ms(k2b)
         plain_ms = cuda_ms(lambda: fs.composite_bwd_reference(
             params, counts, fo, go, *args), reps=3, warm=1)
         work = fs.composite_work(params, counts, *args)
+    tile_slots = work["tile_slots"].float()
     b_ms, b_by = k2b_bound(work, params.shape[2], counts, S, mpt)
     emit("k2_bwd", tiles=int(params.shape[0]), splats=65536, image=S,
          dup=dup, R=int(params.shape[2]), slots_total=int(counts.sum()),
          live_pairs=work["pairs"], used_pairs=work["used"],
+         tile_slots_max=int(tile_slots.max()),
+         tile_slots_mean=float(tile_slots.mean()),
+         live_chunks=int(torch.ceil(tile_slots / 128).sum()),
+         blocks=int(params.shape[0]) * (mpt // 128),
+         balance=tile_balance(work["tile_slots"], chunked=True),
+         state_mb=state.numel() * 4 / 1e6, state_max_abs_err=state_err,
          max_abs_err=err, max_row_rel_err=rel, tol_row_rel=K2B_REL_TOL,
-         kernel_ms=ms, plain_ms=plain_ms, bound_us=b_ms * 1e3,
-         bound_by=b_by)
+         bitwise_repeat=True, kernel_ms=ms, kernel_one_call_ms=one_call_ms,
+         was_kernel_ms=PREVIOUS_MS["k2_bwd"], plain_ms=plain_ms,
+         bound_us=b_ms * 1e3, bound_by=b_by)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -585,8 +667,10 @@ def phase_k3(dev):
 
 
 def phase_k3_bwd(dev, args, fo, work):
-    """K3ᵇ on the bench scene's composite with a seeded cotangent, against
-    its plain version."""
+    """K3ᵇ on the bench scene's composite with a seeded cotangent, fed K3's
+    chunk-boundary state: the state against the plain K3's, K3ᵇ against
+    its plain replay, two runs bit for bit, the per-tile work and the
+    blocks launched, and the time over K1_LAUNCHES calls and over one."""
     import numpy as np
     import torch
 
@@ -594,19 +678,43 @@ def phase_k3_bwd(dev, args, fo, work):
 
     params, counts, pf = args
     with torch.no_grad():
+        fo2, state = tiled.tile_composite_fwd(*args, return_state=True)
+        _, ref_state = tiled.tile_composite_reference(*args,
+                                                      return_state=True)
+        torch.cuda.synchronize()
+        if not torch.equal(fo2, fo):
+            raise AssertionError("K3 with its state differs from K3 without")
+        state_err = float((state - ref_state).abs().max())
+        if not state_err <= K3_ATOL:
+            raise AssertionError(f"K3 state: max abs err {state_err} > "
+                                 f"{K3_ATOL}")
+        del fo2, ref_state
         go = torch.as_tensor(np.random.default_rng(1).normal(
             0, 1, tuple(fo.shape)), dtype=torch.float32, device=dev)
-        err, rel = check_k3b(*args, fo, go, "bench")
-        ms = cuda_ms(lambda: tiled.tile_composite_bwd(*args, fo, go))
+        err, rel = check_k3b(*args, fo, go, state, "bench")
+
+        def k3b():
+            return tiled.tile_composite_bwd(*args, fo, go, state)
+
+        ms = cuda_ms(k3b, launches=K1_LAUNCHES)
+        one_call_ms = cuda_ms(k3b)
         plain_ms = cuda_ms(lambda: tiled.tile_composite_bwd_reference(
             *args, fo, go), reps=3, warm=1)
+    chunks = work["tile_chunks"]
     b_ms, b_by = k3b_bound(work, counts.numel(), pf.shape[0],
                            params.shape[2])
     emit("k3_bwd", tiles=int(params.shape[0]), splats=65536,
          max_per_tile=int(params.shape[2]), slots_total=int(counts.sum()),
          live_chunks=work["chunks"], live_pairs=work["pairs"],
-         used_pairs=work["used"], max_abs_err=err, max_row_rel_err=rel,
-         tol_row_rel=K3B_REL_TOL, kernel_ms=ms, plain_ms=plain_ms,
+         used_pairs=work["used"], tile_chunks_max=int(chunks.max()),
+         tile_chunks_mean=float(chunks.float().mean()),
+         blocks=int(params.shape[0]) * (int(params.shape[2]) // 128),
+         balance=tile_balance(torch.minimum(chunks * 128, counts.long()),
+                              chunked=True),
+         state_mb=state.numel() * 4 / 1e6, state_max_abs_err=state_err,
+         max_abs_err=err, max_row_rel_err=rel, tol_row_rel=K3B_REL_TOL,
+         bitwise_repeat=True, kernel_ms=ms, kernel_one_call_ms=one_call_ms,
+         was_kernel_ms=PREVIOUS_MS["k3_bwd"], plain_ms=plain_ms,
          bound_us=b_ms * 1e3, bound_by=b_by)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
@@ -777,8 +885,11 @@ def phase_train(dev):
         return orig_mha_back(ctx, do)
 
     def spy_comp_back(ctx, go):
-        params, counts, out = ctx.saved_tensors
-        captured["k2"] = (params, counts, out, go.contiguous()) + ctx.tiling
+        params, counts, out, k2_state = ctx.saved_tensors
+        captured["k2"] = (params, counts, out, go.contiguous(),
+                          k2_state) + ctx.tiling
+        captured.setdefault("views", []).append((params, counts)
+                                                + ctx.tiling)
         return orig_comp_back(ctx, go)
 
     counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, fs.composite_fwd,
@@ -821,23 +932,37 @@ def phase_train(dev):
         k1_err, k1_tol = check_k1b(q, k, v, o, do, scale, lse, "train step")
         k1_ms = cuda_ms(lambda: mha_mod.mha_bwd(q, k, v, o, do, scale, lse),
                         launches=K1_LAUNCHES)
-        params, counts, fo, go, th, tw, tiles_x = captured["k2"]
-        k2_err, k2_rel = check_k2b(params, counts, fo, go, th, tw, tiles_x,
-                                   "train step")
-        k2_ms = cuda_ms(lambda: fs.composite_bwd(params, counts, fo, go, th,
-                                                 tw, tiles_x))
+        params, counts, fo, go, k2_state, th, tw, tiles_x = captured["k2"]
+        k2_err, k2_rel = check_k2b(params, counts, fo, go, k2_state, th, tw,
+                                   tiles_x, "train step")
+
+        def k2b():
+            return fs.composite_bwd(params, counts, fo, go, th, tw, tiles_x,
+                                    state=k2_state)
+
+        k2_ms = cuda_ms(k2b, launches=K1_LAUNCHES)
+        k2_one_call_ms = cuda_ms(k2b)
         work = fs.composite_work(params, counts, th, tw, tiles_x)
+        # Each supervision view's tile balance (the order autograd ran
+        # them in).
+        balance = [tile_balance(fs.composite_work(*v)["tile_slots"],
+                                chunked=True) for v in captured["views"]]
     emit("train_kernels", k1_max_abs_err=k1f_err,
          k1_lse_max_abs_err=k1f_lse_err,
          k1_bwd_shape=list(q.shape), k1_bwd_max_abs_err=k1_err,
          k1_bwd_tol=k1_tol, k1_bwd_ms=k1_ms,
          k2_bwd_slots_total=int(counts.sum()), k2_bwd_live_pairs=work["pairs"],
          k2_bwd_used_pairs=work["used"], k2_bwd_max_abs_err=k2_err,
-         k2_bwd_max_row_rel_err=k2_rel, k2_bwd_ms=k2_ms,
+         k2_bwd_max_row_rel_err=k2_rel, k2_bwd_bitwise_repeat=True,
+         k2_bwd_ms=k2_ms, k2_bwd_one_call_ms=k2_one_call_ms,
          k2_bwd_bound_us=k2b_bound(work, params.shape[2], counts,
-                                   tw * tiles_x, params.shape[1])[0] * 1e3)
+                                   tw * tiles_x, params.shape[1])[0] * 1e3,
+         k2_state_mb_per_view=k2_state.numel() * 4 / 1e6,
+         views=len(balance),
+         tiles_over_even=[b["tiles_over_even"] for b in balance],
+         chunks_over_even=[b["chunks_over_even"] for b in balance])
     captured.clear()
-    del q, k, v, o, do, lse, params, counts, fo, go
+    del q, k, v, o, do, lse, params, counts, fo, go, k2_state
 
     # The configuration `python -m lgm_tpu_torch.train big` runs by
     # default: the preset's U-Net recompute on (the same state, the flag
@@ -925,6 +1050,7 @@ def phase_train_v1(dev):
 
     def spy_back(ctx, go):
         captured["k3"] = tuple(ctx.saved_tensors) + (go.contiguous(),)
+        captured.setdefault("views", []).append(ctx.saved_tensors[:3])
         return orig_back(ctx, go)
 
     counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, fs.composite_fwd,
@@ -962,24 +1088,42 @@ def phase_train_v1(dev):
 
     # The kernels on the step's own inputs (launches here are not counted
     # above: the counts were read already).
-    params, counts, pf, fo, go = captured["k3"]
+    params, counts, pf, fo, k3_state, go = captured["k3"]
     with torch.no_grad():
         _, k3_err = check_k3(params, counts, pf, "train step")
         k3_ms = cuda_ms(lambda: tiled.tile_composite_fwd(params, counts, pf))
-        k3b_err, k3b_rel = check_k3b(params, counts, pf, fo, go,
+        k3b_err, k3b_rel = check_k3b(params, counts, pf, fo, go, k3_state,
                                      "train step")
-        k3b_ms = cuda_ms(lambda: tiled.tile_composite_bwd(params, counts, pf,
-                                                          fo, go))
+
+        def k3b():
+            return tiled.tile_composite_bwd(params, counts, pf, fo, go,
+                                            k3_state)
+
+        k3b_ms = cuda_ms(k3b, launches=K1_LAUNCHES)
+        k3b_one_call_ms = cuda_ms(k3b)
         work = tiled.tile_composite_work(params, counts, pf)
+        # Each supervision view's tile balance: the slots K3ᵇ visits a
+        # tile (its live chunks, up to its count).
+        balance = []
+        for p_, c_, f_ in captured["views"]:
+            chunks = tiled.tile_composite_work(p_, c_, f_)["tile_chunks"]
+            balance.append(tile_balance(
+                torch.minimum(chunks * 128, c_.long()), chunked=True))
     T, P, K = counts.numel(), pf.shape[0], params.shape[2]
     emit("train_v1_kernels", slots_total=int(counts.sum()),
          live_chunks=work["chunks"], live_pairs=work["pairs"],
          used_pairs=work["used"], k3_max_abs_err=k3_err, k3_ms=k3_ms,
          k3_bound_us=k3_bound(work, T, P)[0] * 1e3,
          k3_bwd_max_abs_err=k3b_err, k3_bwd_max_row_rel_err=k3b_rel,
-         k3_bwd_ms=k3b_ms, k3_bwd_bound_us=k3b_bound(work, T, P, K)[0] * 1e3)
+         k3_bwd_bitwise_repeat=True, k3_bwd_ms=k3b_ms,
+         k3_bwd_one_call_ms=k3b_one_call_ms,
+         k3_bwd_bound_us=k3b_bound(work, T, P, K)[0] * 1e3,
+         k3_state_mb_per_view=k3_state.numel() * 4 / 1e6,
+         views=len(balance),
+         tiles_over_even=[b["tiles_over_even"] for b in balance],
+         chunks_over_even=[b["chunks_over_even"] for b in balance])
     captured.clear()
-    del params, counts, pf, fo, go
+    del params, counts, pf, fo, go, k3_state
 
     data = train._batch_data(train_ds.batch(N_STEPS))
     bg = torch.rand(3, generator=gen).to(dev)

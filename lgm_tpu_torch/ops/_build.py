@@ -101,6 +101,64 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         return _libs[name]
 
 
+def short_name(mangled: str) -> str:
+    """A kernel's mangled symbol as its name and integer template
+    arguments, ``mha_fwd_kernel<32,2,4>``."""
+    import re
+
+    base = re.findall(r"\d+([A-Za-z_]+kernel)", mangled)
+    args = ",".join(re.findall(r"Li(\d+)E", mangled))
+    return (base[-1] if base else mangled) + (f"<{args}>" if args else "")
+
+
+def sass_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
+    """Static counts of warp shuffles (``SHFL``) and shared-memory loads
+    (``LDS*``, ``LDSM``) in each kernel of a built library, read from
+    ``cuobjdump -sass``, in the whole kernel and in its longest loop (the
+    instructions between a backward branch and its target: ``loop``,
+    ``loop_SHFL``, ``loop_LDS``); None where the toolkit has no
+    ``cuobjdump``."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    kernels: Dict[str, list] = {}
+    ops = None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            ops = kernels.setdefault(short_name(fn.group(1)), [])
+            continue
+        op = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z0-9_.]+)([^;]*)", line)
+        if ops is not None and op:
+            ops.append((int(op.group(1), 16), op.group(2).split(".")[0],
+                        op.group(3)))
+
+    def count(instrs):
+        return {"SHFL": sum(name == "SHFL" for _, name, _ in instrs),
+                "LDS": sum(name in ("LDS", "LDSM") for _, name, _ in instrs)}
+
+    out: Dict[str, Dict[str, int]] = {}
+    for kernel, instrs in kernels.items():
+        out[kernel] = count(instrs)
+        loops = []
+        for addr, name, rest in instrs:
+            target = re.search(r"0x([0-9a-f]+)", rest)
+            if name == "BRA" and target and int(target.group(1), 16) < addr:
+                lo = int(target.group(1), 16)
+                loops.append([i for i in instrs if lo <= i[0] <= addr])
+        if loops:
+            body = max(loops, key=len)
+            inner = count(body)
+            out[kernel].update(loop=len(body), loop_SHFL=inner["SHFL"],
+                               loop_LDS=inner["LDS"])
+    return out
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(

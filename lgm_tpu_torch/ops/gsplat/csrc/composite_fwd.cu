@@ -20,6 +20,13 @@
 // contribution). Output [T, 8, P] f32: rows r, g, b, sum w, T_final,
 // depth (sum w z), 0, 0.
 //
+// When asked (state != nullptr), it also writes the pixel state at every
+// 128-slot chunk boundary, [T, MPT / 128, 6, P] f32: before chunk c, each
+// pixel's T and its accumulators r, g, b, sum w, depth, as the chunk loop
+// holds them there; boundaries past the tile's last composited chunk get
+// its final values. K2ᵇ (composite_bwd.cu) starts each (tile, chunk) block
+// from them: the T it votes on is the one the forward voted on, bit for bit.
+//
 // What bounds it on an H100: the work depends on the data. Each live
 // (pixel, slot) pair the chunk loop visits costs one exp on the SFU (16
 // per clock per SM) and ~25 f32 operations (67 TFLOP/s outside the tensor
@@ -44,7 +51,8 @@ constexpr float kTEps = 1e-4f;
 
 __global__ void composite_fwd_kernel(const float* __restrict__ params,
                                      const int* __restrict__ counts,
-                                     float* __restrict__ out, int mpt, int R,
+                                     float* __restrict__ out,
+                                     float* __restrict__ state, int mpt, int R,
                                      int tile_h, int tile_w, int tiles_x) {
   extern __shared__ float slots[];  // kChunk * R
   const int tile = blockIdx.x;
@@ -59,7 +67,20 @@ __global__ void composite_fwd_kernel(const float* __restrict__ params,
   const bool with_depth = R > 9;
 
   float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f, cd = 0.f;
+  const int nc = mpt / kChunk;
+  float* st = state ? state + (size_t)tile * nc * 6 * P + pix : nullptr;
+  int c = 0;  // boundaries written
+  auto keep_state = [&]() {
+    float* s = st + (size_t)c++ * 6 * P;
+    s[0 * P] = T;
+    s[1 * P] = cr;
+    s[2 * P] = cg;
+    s[3 * P] = cb;
+    s[4 * P] = ca;
+    s[5 * P] = cd;
+  };
   for (int c0 = 0; c0 < count; c0 += kChunk) {
+    if (st) keep_state();
     // Block-wide vote; also the barrier before the staging buffer is
     // overwritten.
     if (!__syncthreads_or(T > kTEps)) break;
@@ -84,6 +105,8 @@ __global__ void composite_fwd_kernel(const float* __restrict__ params,
       }
     }
   }
+  if (st)
+    while (c < nc) keep_state();
   float* o = out + (size_t)tile * 8 * P + pix;
   o[0 * P] = cr;
   o[1 * P] = cg;
@@ -100,11 +123,12 @@ __global__ void composite_fwd_kernel(const float* __restrict__ params,
 extern "C" {
 
 // params [T, mpt, R] f32, counts [T] i32, out [T, 8, tile_h * tile_w] f32,
-// all contiguous on device ``device``; R in {9, 10}; tile_h * tile_w <= 1024.
-// Launches on ``stream``; returns cudaGetLastError().
-int composite_fwd_f32(const void* params, const void* counts, void* out, int T,
-                      int mpt, int R, int tile_h, int tile_w, int tiles_x,
-                      void* stream, int device) {
+// state null or [T, mpt / 128, 6, tile_h * tile_w] f32, all contiguous on
+// device ``device``; R in {9, 10}; tile_h * tile_w <= 1024. Launches on
+// ``stream``; returns cudaGetLastError().
+int composite_fwd_f32(const void* params, const void* counts, void* out,
+                      void* state, int T, int mpt, int R, int tile_h,
+                      int tile_w, int tiles_x, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int P = tile_h * tile_w;
@@ -112,7 +136,8 @@ int composite_fwd_f32(const void* params, const void* counts, void* out, int T,
   composite_fwd_kernel<<<T, P, kChunk * R * sizeof(float),
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(params), static_cast<const int*>(counts),
-      static_cast<float*>(out), mpt, R, tile_h, tile_w, tiles_x);
+      static_cast<float*>(out), static_cast<float*>(state), mpt, R, tile_h,
+      tile_w, tiles_x);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-// Kernel K3 backward (K3ᵇ): the VJP of the v1 tiled composite, one image
-// tile per block.
+// Kernel K3 backward (K3ᵇ): the VJP of the v1 tiled composite, one block
+// per (image tile, 128-slot chunk).
 //
 // Replaces lgm_tpu/ops/gsplat/tiled.py::_bwd_kernel (via _run_bwd, the VJP
 // of tile_composite). The function is the same: from the forward's inputs
@@ -19,122 +19,165 @@
 //   rows 8-10: go_c w
 // and zero in rows 7 and 11-15. Chunks the forward skipped stay zero: the
 // caller hands in dparams zeroed, and the kernel writes rows 0-6 and 8-10
-// of every chunk it replays (all 128 slots; zero rows past counts[t] get
-// zero gradients).
+// of the slots it replays, up to counts[t]: the slots past it are the
+// binning's zero rows, whose gradient is zero, and stay as handed in.
+// state [T, K / 128, 5, P] is K3's pixel state at each chunk boundary (T,
+// then the sums r, g, b, sum w; tiled_fwd.cu).
 //
 // What bounds it on an H100: like K3, the (pixel, slot) pairs of the live
 // chunks, each one exp on the SFU and ~12 f32 operations, ~40 more where
 // the pair was used (the replay, ten gradient terms and their sums over
-// the tile's pixels). Bytes: ten rows of each live chunk and fo, go in,
-// dparams out.
+// the tile's pixels). Bytes: ten rows of each live chunk, fo, go and the
+// state in, dparams out.
 //
-// The simple design, K2ᵇ's: one thread per pixel (P <= 1024, a multiple
-// of 32), one block per tile, one view per launch. Per slot, each warp sums
-// its 32 pixels' ten terms with shuffles (skipped, and zeros taken, when no
-// pixel of the warp used the slot); every 32 slots the warps' partial sums
-// in shared memory ([32 warps][32 slots][10] f32, 40 KB) are added in a
-// fixed order, so the result is deterministic, and written out coalesced
-// along the slot axis.
+// The design:
+// - One block per (tile, chunk), as lgm_tpu's v1 backward grid: the
+//   training step's views are not balanced at tile grain (a whole-tile
+//   schedule ends up to 1.8x after an even share, 1.15x at chunk grain).
+//   A block starts from the state K3 stored at its chunk's first slot: T,
+//   and prefix = sum_{c<4} go_c acc_c. It votes on that T, the forward's
+//   own bits, so it stops where the forward stopped.
+// - Each thread owns PPT pixels (4 at 32 x 32 tiles: 256 threads) and adds
+//   their terms of a slot in registers; a chunk's slots are staged
+//   slot-major (tiled_common.cuh's stage_slots), so a thread reads a slot
+//   as three 16-byte loads for PPT pixels. One division a used pair,
+//   __fdividef (its divisor is in [0.01, 1]). A pixel branches on its
+//   alpha test: about a quarter of the bench view's pairs are used, and
+//   the replay without the branch (K2ᵇ's form) measured 5-7% slower here
+//   (NVIDIA H100 80GB HBM3, 700 W).
+// - The sums over pixels are composite_reduce.cuh's: a transposing warp
+//   butterfly over batches of 8 slots (~11 shuffles a slot), the warps'
+//   sums for the chunk in shared memory, one barrier, a fixed-order sum
+//   over the warps. Deterministic, no atomics.
 
+#include "composite_reduce.cuh"
 #include "tiled_common.cuh"
 
 namespace {
 
 using namespace tiled;
+using namespace composite_reduce;
 
-constexpr int kSub = 32;       // slots per cross-warp reduction round
-constexpr int kWarpsMax = 32;
-constexpr float kOmMin = 0.01f;  // floor of 1 - alpha in the divisions
+constexpr int kMaxPix = 1024;
+constexpr float kOmMin = 0.01f;  // floor of 1 - alpha in the division
 
-__device__ __forceinline__ float warp_sum(float x) {
+template <int PPT>
+__global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
+    tiled_bwd_kernel(const float* __restrict__ params,
+                     const int* __restrict__ counts,
+                     const float* __restrict__ pf,
+                     const float* __restrict__ fo,
+                     const float* __restrict__ go,
+                     const float* __restrict__ state,
+                     float* __restrict__ dparams, int K) {
+  extern __shared__ __align__(16) float smem[];
+  float* slots = smem;                       // [kChunk][kSlotStride]
+  float* red = smem + kChunk * kSlotStride;  // [warp][kChunk][kVals]
+  const int nc = K / kChunk;
+  const int tile = blockIdx.x / nc;
+  const int c0 = (blockIdx.x % nc) * kChunk;
+  const int tid = threadIdx.x;
+  const int P = blockDim.x * PPT;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int count = min(counts[tile], K);
+  // A chunk past the tile's count, or past the forward's early-out (its
+  // vote at this boundary, on the same bits of T), keeps its zeros.
+  if (c0 >= count) return;
+  const float* st = state + ((size_t)tile * nc + c0 / kChunk) * kStateRows * P;
+  float T[PPT];
+  bool open = false;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;
+  for (int p = 0; p < PPT; ++p) {
+    T[p] = st[tid + p * blockDim.x];
+    open |= T[p] > kTEps;
+  }
+  if (!__syncthreads_or(open)) return;
+
+  // This thread's pixels: tid, tid + blockDim.x, ...
+  float f[PPT][kFeat], pref[PPT], u_tail[PPT];
+  float4 gc[PPT];
+#pragma unroll
+  for (int p = 0; p < PPT; ++p) {
+    const int pix = tid + p * blockDim.x;
+#pragma unroll
+    for (int k = 0; k < kFeat; ++k) f[p][k] = pf[pix * 8 + k];
+    const float4* fp = reinterpret_cast<const float4*>(fo + ((size_t)tile * P + pix) * 8);
+    const float4* gp = reinterpret_cast<const float4*>(go + ((size_t)tile * P + pix) * 8);
+    const float4 f0 = fp[0];
+    gc[p] = gp[0];
+    // U_total + gT T_final: the suffix the division takes, before prefix.
+    u_tail[p] = gc[p].x * f0.x + gc[p].y * f0.y + gc[p].z * f0.z + gc[p].w * f0.w +
+                gp[1].x * fp[1].x;
+    pref[p] = gc[p].x * st[P + pix] + gc[p].y * st[2 * P + pix] +
+              gc[p].z * st[3 * P + pix] + gc[p].w * st[4 * P + pix];
+  }
+  const int n = min(kChunk, count - c0);
+  const float* blk = params + (size_t)tile * kRows * K;
+  stage_slots(blk, K, c0, (n + kBatch - 1) / kBatch * kBatch, slots);
+  __syncthreads();
+
+  const float4* s4 = reinterpret_cast<const float4*>(slots);
+  // This thread's terms of slot j, summed over its pixels.
+  auto slot_terms = [&](int j, float (&v)[kVals]) {
+    const float4 a = s4[j * 3], b = s4[j * 3 + 1], d = s4[j * 3 + 2];
+    // a, b.xy: coefficients 0-5; b.z: opacity; b.w, d.xy: r, g, b
+    const float c[kFeat] = {a.x, a.y, a.z, a.w, b.x, b.y};
+#pragma unroll
+    for (int k = 0; k < kVals; ++k) v[k] = 0.f;
+#pragma unroll
+    for (int p = 0; p < PPT; ++p) {
+      const Pair q = pair_of(f[p], c, b.z);
+      if (q.use) {
+        const float s = gc[p].x * b.w + gc[p].y * d.x + gc[p].z * d.y + gc[p].w;
+        const float w = q.alpha * T[p];
+        pref[p] += s * w;
+        const float dalpha =
+            s * T[p] - __fdividef(u_tail[p] - pref[p], fmaxf(1.f - q.alpha, kOmMin));
+        if (q.araw < kAlphaMax) {
+          const float dpower = dalpha * q.alpha;
+#pragma unroll
+          for (int k = 0; k < kFeat; ++k) v[k] += f[p][k] * dpower;
+          v[6] += dalpha * q.e;
+        }
+        v[7] += gc[p].x * w;
+        v[8] += gc[p].y * w;
+        v[9] += gc[p].z * w;
+        T[p] = attenuate(T[p], q.alpha);
+      }
+    }
+  };
+
+  float* red_warp = red + warp * kChunk * kVals;
+  for (int j0 = 0; j0 < n; j0 += kBatch) {
+    float v[kVals];
+    warp_batch(slot_terms, j0, lane, v);
+    store_batch(red_warp, j0, lane, v);
+  }
+  __syncthreads();
+  float* dblk = dparams + (size_t)tile * kRows * K + c0;
+  for (int i = tid; i < kStaged * n; i += blockDim.x) {
+    const int k = i / n, j = i % n;
+    dblk[(size_t)(k < 7 ? k : k + 1) * K + j] =
+        warps_sum(red, nwarps, kChunk * kVals, j * kVals + k);
+  }
 }
 
-__global__ void tiled_bwd_kernel(const float* __restrict__ params,
-                                 const int* __restrict__ counts,
-                                 const float* __restrict__ pf,
-                                 const float* __restrict__ fo,
-                                 const float* __restrict__ go,
-                                 float* __restrict__ dparams, int K) {
-  extern __shared__ float smem[];
-  float* rows = smem;                       // [kStaged][kChunk]
-  float* red = smem + kStaged * kChunk;     // [warp][kSub][kStaged]
-  const int tile = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int P = blockDim.x;
-  const int warp = pix >> 5;
-  const int lane = pix & 31;
-  const int nwarps = P >> 5;
-  float f[kFeat];
-#pragma unroll
-  for (int k = 0; k < kFeat; ++k) f[k] = pf[pix * 8 + k];
-  const int count = min(counts[tile], K);
-  const float* blk = params + (size_t)tile * kRows * K;
-  float* dblk = dparams + (size_t)tile * kRows * K;
-
-  const float4* fp = reinterpret_cast<const float4*>(fo + ((size_t)tile * P + pix) * 8);
-  const float4* gp = reinterpret_cast<const float4*>(go + ((size_t)tile * P + pix) * 8);
-  const float4 f0 = fp[0], g0 = gp[0];
-  const float u_total = g0.x * f0.x + g0.y * f0.y + g0.z * f0.z + g0.w * f0.w;
-  const float tail = gp[1].x * fp[1].x;  // gT T_final
-
-  float T = 1.f, pref = 0.f;
-  for (int c0 = 0; c0 < count; c0 += kChunk) {
-    // The forward's vote; also the barrier before the staging buffer is
-    // overwritten.
-    if (!__syncthreads_or(T > kTEps)) break;
-    stage_chunk(blk, K, c0, rows);
-    __syncthreads();
-    for (int j0 = 0; j0 < kChunk; j0 += kSub) {
-      for (int jj = 0; jj < kSub; ++jj) {
-        const int j = j0 + jj;
-        const Pair a = pair_alpha(f, rows, j);
-        float v[kStaged];
-        if (__any_sync(0xffffffffu, a.use)) {
-          float w = 0.f, dpower = 0.f, dop = 0.f;
-          if (a.use) {
-            const float s = g0.x * rows[7 * kChunk + j] + g0.y * rows[8 * kChunk + j] +
-                            g0.z * rows[9 * kChunk + j] + g0.w;
-            w = a.alpha * T;
-            pref += s * w;
-            const float om = fmaxf(1.f - a.alpha, kOmMin);
-            const float dalpha = s * T - (u_total - pref) / om - tail / om;
-            if (a.araw < kAlphaMax) {
-              dpower = dalpha * a.alpha;
-              dop = dalpha * a.e;
-            }
-            T = attenuate(T, a.alpha);
-          }
-#pragma unroll
-          for (int k = 0; k < kFeat; ++k) v[k] = f[k] * dpower;
-          v[6] = dop;
-          v[7] = g0.x * w;
-          v[8] = g0.y * w;
-          v[9] = g0.z * w;
-#pragma unroll
-          for (int k = 0; k < kStaged; ++k) v[k] = warp_sum(v[k]);
-        } else {
-#pragma unroll
-          for (int k = 0; k < kStaged; ++k) v[k] = 0.f;
-        }
-        if (lane == 0) {
-          float* r = red + (warp * kSub + jj) * kStaged;
-#pragma unroll
-          for (int k = 0; k < kStaged; ++k) r[k] = v[k];
-        }
-      }
-      __syncthreads();
-      for (int i = pix; i < kSub * kStaged; i += P) {
-        const int k = i / kSub, jj = i % kSub;
-        float acc = 0.f;
-        for (int w = 0; w < nwarps; ++w) acc += red[(w * kSub + jj) * kStaged + k];
-        dblk[(size_t)(k < 7 ? k : k + 1) * K + c0 + j0 + jj] = acc;
-      }
-      __syncthreads();  // red is rewritten by the next round
-    }
-  }
+template <int PPT>
+int launch(const float* params, const int* counts, const float* pf,
+           const float* fo, const float* go, const float* state, float* dparams,
+           int T, int K, int P, cudaStream_t stream) {
+  const int threads = P / PPT;
+  const size_t smem =
+      (kChunk * kSlotStride + (threads / 32) * kChunk * kVals) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      tiled_bwd_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tiled_bwd_kernel<PPT><<<T * (K / kChunk), threads, smem, stream>>>(
+      params, counts, pf, fo, go, state, dparams, K);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,22 +185,30 @@ __global__ void tiled_bwd_kernel(const float* __restrict__ params,
 extern "C" {
 
 // params, dparams [T, 16, K] f32 (dparams zeroed by the caller); counts [T]
-// i32; pf [P, 8] f32; fo, go [T, P, 8] f32; all contiguous on device
-// ``device``. K a multiple of 128; P a multiple of 32, at most 1024.
-// Launches on ``stream``; returns cudaGetLastError().
+// i32; pf [P, 8] f32; fo, go [T, P, 8] f32; state [T, K / 128, 5, P] f32
+// from tiled_fwd_f32; all contiguous on device ``device``. K a multiple of
+// 128; P a multiple of 32, at most 1024 (4 pixels a thread where it is a
+// multiple of 128, else 2 or 1). Launches on ``stream``; returns
+// cudaGetLastError().
 int tiled_bwd_f32(const void* params, const void* counts, const void* pf,
-                  const void* fo, const void* go, void* dparams, int T, int K,
-                  int P, void* stream, int device) {
+                  const void* fo, const void* go, const void* state,
+                  void* dparams, int T, int K, int P, void* stream,
+                  int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (P > kWarpsMax * 32 || P % 32 != 0 || K % kChunk != 0)
+  if (P > kMaxPix || P % 32 != 0 || K % kChunk != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (kStaged * kChunk + kWarpsMax * kSub * kStaged) * sizeof(float);
-  tiled_bwd_kernel<<<T, P, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(params), static_cast<const int*>(counts),
-      static_cast<const float*>(pf), static_cast<const float*>(fo),
-      static_cast<const float*>(go), static_cast<float*>(dparams), K);
-  return (int)cudaGetLastError();
+  auto* p = static_cast<const float*>(params);
+  auto* c = static_cast<const int*>(counts);
+  auto* x = static_cast<const float*>(pf);
+  auto* f = static_cast<const float*>(fo);
+  auto* g = static_cast<const float*>(go);
+  auto* s = static_cast<const float*>(state);
+  auto* d = static_cast<float*>(dparams);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (P % 128 == 0) return launch<4>(p, c, x, f, g, s, d, T, K, P, st);
+  if (P % 64 == 0) return launch<2>(p, c, x, f, g, s, d, T, K, P, st);
+  return launch<1>(p, c, x, f, g, s, d, T, K, P, st);
 }
 
 const char* kernel_error_name(int err) {

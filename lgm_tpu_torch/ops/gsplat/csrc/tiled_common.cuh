@@ -1,5 +1,6 @@
 // Shared by tiled_fwd.cu (K3) and tiled_bwd.cu (K3ᵇ): the constants, the
-// staging of one 128-slot chunk, and the alpha of one (pixel, slot) pair.
+// staging of one 128-slot chunk (row-major for K3, slot-major for K3ᵇ), and
+// the alpha of one (pixel, slot) pair.
 //
 // K3ᵇ replays K3, so both must take the same decisions (alpha test, 0.99
 // clamp, the tile's early-out vote) from the same bits. The power is
@@ -23,6 +24,8 @@ constexpr int kChunk = 128;  // slots per chunk (G_CHUNK)
 constexpr int kRows = 16;    // rows of params_tiles [T, 16, K]
 constexpr int kStaged = 10;  // rows read: 0-5 coefficients, 6 opacity, 8-10 rgb
 constexpr int kFeat = 6;     // pixel features read: x², y², xy, x, y, 1
+constexpr int kSlotStride = 12;  // floats per slot staged slot-major
+constexpr int kStateRows = 5;    // chunk-boundary state: T, r, g, b, sum w
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
@@ -38,6 +41,19 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ blk,
   }
 }
 
+// Copies rows 0-6 and 8-10 of slots c0 .. c0 + n - 1 of one tile's [16, K]
+// block into slots[n][kSlotStride], slot-major (row 8 lands at 7, and so
+// on; 10 and 11 are zero), so that a thread reads a slot as three 16-byte
+// loads. Coalesced along the slots; the caller synchronizes.
+__device__ __forceinline__ void stage_slots(const float* __restrict__ blk,
+                                            int K, int c0, int n, float* slots) {
+  for (int i = threadIdx.x; i < kSlotStride * n; i += blockDim.x) {
+    const int r = i / n, j = i % n;
+    slots[j * kSlotStride + r] =
+        r < kStaged ? blk[(size_t)(r < 7 ? r : r + 1) * K + c0 + j] : 0.f;
+  }
+}
+
 struct Pair {
   float alpha;  // min(op e^power, 0.99) where used, else 0
   float araw;   // op e^power
@@ -45,21 +61,29 @@ struct Pair {
   bool use;     // power <= 0 and op e^power >= 1/255
 };
 
-// The alpha of slot j of the staged chunk at the pixel whose features are
-// f[0..5]. Slots past the tile's count are zero rows: power 0, op 0, not
-// used.
-__device__ __forceinline__ Pair pair_alpha(const float (&f)[kFeat],
-                                           const float* rows, int j) {
-  float power = __fmul_rn(f[0], rows[j]);
+// The alpha of a slot with coefficients c[0..5] and opacity op at the pixel
+// whose features are f[0..5]. Slots past the tile's count are zero rows:
+// power 0, op 0, not used.
+__device__ __forceinline__ Pair pair_of(const float (&f)[kFeat],
+                                        const float (&c)[kFeat], float op) {
+  float power = __fmul_rn(f[0], c[0]);
 #pragma unroll
-  for (int k = 1; k < kFeat; ++k)
-    power = __fadd_rn(power, __fmul_rn(f[k], rows[k * kChunk + j]));
+  for (int k = 1; k < kFeat; ++k) power = __fadd_rn(power, __fmul_rn(f[k], c[k]));
   Pair p;
   p.e = expf(power);
-  p.araw = __fmul_rn(rows[6 * kChunk + j], p.e);
+  p.araw = __fmul_rn(op, p.e);
   p.use = power <= 0.f && p.araw >= kAlphaMin;
   p.alpha = p.use ? fminf(p.araw, kAlphaMax) : 0.f;
   return p;
+}
+
+// pair_of for slot j of a chunk staged row-major by stage_chunk.
+__device__ __forceinline__ Pair pair_alpha(const float (&f)[kFeat],
+                                           const float* rows, int j) {
+  float c[kFeat];
+#pragma unroll
+  for (int k = 0; k < kFeat; ++k) c[k] = rows[k * kChunk + j];
+  return pair_of(f, c, rows[6 * kChunk + j]);
 }
 
 // The transmittance behind a used pair.

@@ -21,6 +21,12 @@
 // are the layout's constants (0, 1, 0, ...) and are not read.
 // Output [T, P, 8] f32: columns r, g, b, sum w, T_final, 0, 0, 0.
 //
+// When asked (state != nullptr), it also writes the pixel state at every
+// 128-slot chunk boundary, [T, K / 128, 5, P] f32: before chunk c, each
+// pixel's T and its sums r, g, b, sum w, as the chunk loop holds them
+// there; boundaries past the tile's last composited chunk get its final
+// values. K3ᵇ (tiled_bwd.cu) starts each (tile, chunk) block from them.
+//
 // The TPU kernel forms power as a matrix product and the transmittance as a
 // 7-step shift network over its 128 lanes, having no cheap sequential
 // loop. Here each thread owns one pixel and walks the chunk in order with
@@ -45,7 +51,8 @@ using namespace tiled;
 __global__ void tiled_fwd_kernel(const float* __restrict__ params,
                                  const int* __restrict__ counts,
                                  const float* __restrict__ pf,
-                                 float* __restrict__ out, int K) {
+                                 float* __restrict__ out,
+                                 float* __restrict__ state, int K) {
   __shared__ float rows[kStaged * kChunk];
   const int tile = blockIdx.x;
   const int pix = threadIdx.x;
@@ -57,7 +64,19 @@ __global__ void tiled_fwd_kernel(const float* __restrict__ params,
   const float* blk = params + (size_t)tile * kRows * K;
 
   float T = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, ca = 0.f;
+  const int nc = K / kChunk;
+  float* st = state ? state + (size_t)tile * nc * kStateRows * P + pix : nullptr;
+  int c = 0;  // boundaries written
+  auto keep_state = [&]() {
+    float* s = st + (size_t)c++ * kStateRows * P;
+    s[0 * P] = T;
+    s[1 * P] = cr;
+    s[2 * P] = cg;
+    s[3 * P] = cb;
+    s[4 * P] = ca;
+  };
   for (int c0 = 0; c0 < count; c0 += kChunk) {
+    if (st) keep_state();
     // The tile's vote; also the barrier before the staging buffer is
     // overwritten.
     if (!__syncthreads_or(T > kTEps)) break;
@@ -75,6 +94,8 @@ __global__ void tiled_fwd_kernel(const float* __restrict__ params,
       }
     }
   }
+  if (st)
+    while (c < nc) keep_state();
   float4* o = reinterpret_cast<float4*>(out + ((size_t)tile * P + pix) * 8);
   o[0] = make_float4(cr, cg, cb, ca);
   o[1] = make_float4(T, 0.f, 0.f, 0.f);
@@ -85,17 +106,20 @@ __global__ void tiled_fwd_kernel(const float* __restrict__ params,
 extern "C" {
 
 // params [T, 16, K] f32, counts [T] i32, pf [P, 8] f32, out [T, P, 8] f32,
-// all contiguous on device ``device``; K a multiple of 128; P a multiple of
-// 32, at most 1024. Launches on ``stream``; returns cudaGetLastError().
+// state null or [T, K / 128, 5, P] f32, all contiguous on device
+// ``device``; K a multiple of 128; P a multiple of 32, at most 1024.
+// Launches on ``stream``; returns cudaGetLastError().
 int tiled_fwd_f32(const void* params, const void* counts, const void* pf,
-                  void* out, int T, int K, int P, void* stream, int device) {
+                  void* out, void* state, int T, int K, int P, void* stream,
+                  int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (P > 1024 || P % 32 != 0 || K % kChunk != 0)
     return (int)cudaErrorInvalidValue;
   tiled_fwd_kernel<<<T, P, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(params), static_cast<const int*>(counts),
-      static_cast<const float*>(pf), static_cast<float*>(out), K);
+      static_cast<const float*>(pf), static_cast<float*>(out),
+      static_cast<float*>(state), K);
   return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,10 @@ Port of ``lgm_tpu/ops/gsplat/flatsort.py``. Per view:
    (``csrc/composite_bwd.cu``) backward on CUDA tensors, their plain
    versions ``composite_reference`` / ``composite_bwd_reference`` on CPU
    tensors. The backward saves params, counts and the output, as
-   ``_cf_fwd`` does.
+   ``_cf_fwd`` does, and K2's pixel state at every 128-slot chunk
+   boundary (``[T, MPT/128, 6, P]``: T and the accumulators r, g, b,
+   alpha, depth), which K2 writes only when asked: K2ᵇ runs one block per
+   (tile, chunk), each starting from its chunk's stored state.
 5. ``_pack_output``: [T, 8, P] -> image / alpha / depth.
 
 Traps kept from the JAX module: the depth argsort is stable (as
@@ -52,14 +55,14 @@ T_EPS = 1e-4
 
 _SIGNATURES = {
     "composite_fwd_f32": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
 _BWD_SIGNATURES = {
     "composite_bwd_f32": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
@@ -236,11 +239,16 @@ class _GatherRows(torch.autograd.Function):
         return d.index_add_(0, flat_rank, g), None
 
 
-def _composite_plain(params, counts, tile_h, tile_w, tiles_x):
+def _composite_plain(params, counts, tile_h, tile_w, tiles_x,
+                     with_state=False):
     """K2's function in plain PyTorch, all tiles at once, chunk by chunk.
-    Returns (out [T, 8, P], visited [T], used): ``visited`` counts the
-    slots each tile's chunk loop walked (the kernel's work per pixel),
-    ``used`` the (pixel, slot) pairs that passed the alpha test."""
+    Returns (out [T, 8, P], visited [T], used, state): ``visited`` counts
+    the slots each tile's chunk loop walked (the kernel's work per pixel),
+    ``used`` the (pixel, slot) pairs that passed the alpha test, and
+    ``state`` (None unless ``with_state``) is K2's ``[T, MPT/128, 6, P]``:
+    at the boundary before each chunk, each pixel's transmittance and its
+    accumulators r, g, b, alpha and depth; past the chunks a tile
+    composites, the tile's final values."""
     T, MPT, R = params.shape
     P = tile_h * tile_w
     dev = params.device
@@ -253,13 +261,22 @@ def _composite_plain(params, counts, tile_h, tile_w, tiles_x):
            ).float()[:, None]
     counts = counts.long()
 
-    Tr = torch.ones(T, P, device=dev)
-    acc = torch.zeros(T, 8, P, device=dev)
+    Tr = torch.ones(T, P, dtype=params.dtype, device=dev)
+    acc = torch.zeros(T, 8, P, dtype=params.dtype, device=dev)
     visited = torch.zeros(T, dtype=torch.long, device=dev)
     used = 0
+    state = (torch.empty(T, MPT // G_CHUNK, 6, P, dtype=params.dtype,
+                         device=dev) if with_state else None)
     for c0 in range(0, MPT, G_CHUNK):
+        c = c0 // G_CHUNK
+        if state is not None:
+            state[:, c, 0] = Tr
+            state[:, c, 1:5] = acc[:, 0:4]
+            state[:, c, 5] = acc[:, 5]
         live = (c0 < counts) & (Tr.amax(dim=1) > T_EPS)       # [T]
         if not bool(live.any()):
+            if state is not None:
+                state[:, c + 1:] = state[:, c:c + 1]
             break
         n = torch.clamp(counts - c0, 0, G_CHUNK)
         visited += torch.where(live, n, torch.zeros_like(n))
@@ -284,30 +301,42 @@ def _composite_plain(params, counts, tile_h, tile_w, tiles_x):
             acc[:, 5] += torch.einsum("tg,tgp->tp", blk[..., 9], wgt)
         Tr = Tr * cp[:, -1]
     acc[:, 4] = Tr
-    return acc, visited, used
+    return acc, visited, used, state
 
 
-def composite_reference(params, counts, tile_h, tile_w, tiles_x):
-    """Plain version of K2: params [T, MPT, R], counts [T] -> [T, 8, P]."""
-    return _composite_plain(params, counts, tile_h, tile_w, tiles_x)[0]
+def composite_reference(params, counts, tile_h, tile_w, tiles_x,
+                        return_state=False):
+    """Plain version of K2: params [T, MPT, R], counts [T] -> [T, 8, P];
+    with ``return_state``, (out, state [T, MPT/128, 6, P]) as K2 writes
+    them."""
+    out, _, _, state = _composite_plain(params, counts, tile_h, tile_w,
+                                        tiles_x, return_state)
+    return (out, state) if return_state else out
 
 
 def composite_work(params, counts, tile_h, tile_w, tiles_x) -> dict:
     """The data-dependent work of K2 on these inputs, which its bound is
     counted from: ``pairs``, the (pixel, slot) pairs the chunk loop
     visits (one exp each), ``used``, those that pass the alpha test and
-    accumulate, and ``slots``, the slot rows staged."""
-    _, visited, used = _composite_plain(params, counts, tile_h, tile_w,
-                                        tiles_x)
+    accumulate, ``slots``, the slot rows staged, and ``tile_slots`` [T],
+    the slots each tile visits (a tile's live 128-slot chunks are
+    ``ceil(tile_slots / 128)``)."""
+    _, visited, used, _ = _composite_plain(params, counts, tile_h, tile_w,
+                                           tiles_x)
     slots = int(visited.sum())
-    return {"pairs": slots * tile_h * tile_w, "used": used, "slots": slots}
+    return {"pairs": slots * tile_h * tile_w, "used": used, "slots": slots,
+            "tile_slots": visited}
 
 
 def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
-                  tile_w: int, tiles_x: int) -> torch.Tensor:
-    """K2 on a CUDA tensor, ``composite_reference`` on a CPU tensor."""
+                  tile_w: int, tiles_x: int, return_state: bool = False):
+    """K2 on a CUDA tensor, ``composite_reference`` on a CPU tensor. With
+    ``return_state`` it also writes the pixel state at every chunk
+    boundary, which ``composite_bwd`` starts its blocks from, and returns
+    (out, state)."""
     if params.device.type == "cpu":
-        return composite_reference(params, counts, tile_h, tile_w, tiles_x)
+        return composite_reference(params, counts, tile_h, tile_w, tiles_x,
+                                   return_state)
     if params.device.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {params.device}")
     if torch.is_grad_enabled() and params.requires_grad:
@@ -318,15 +347,17 @@ def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
     P = tile_h * tile_w
     _check_kernel_inputs("composite_fwd", params, counts, tile_h, tile_w)
     out = torch.empty(T, 8, P, dtype=torch.float32, device=params.device)
+    state = (torch.empty(T, MPT // G_CHUNK, 6, P, dtype=torch.float32,
+                         device=params.device) if return_state else None)
     lib = _build.load("composite_fwd", _SIGNATURES)
     err = lib.composite_fwd_f32(
-        params.data_ptr(), counts.data_ptr(), out.data_ptr(), T, MPT, R,
-        tile_h, tile_w, tiles_x,
-        torch.cuda.current_stream(params.device).cuda_stream,
+        params.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        state.data_ptr() if return_state else None, T, MPT, R, tile_h,
+        tile_w, tiles_x, torch.cuda.current_stream(params.device).cuda_stream,
         params.device.index)
     _build.check(lib, err, "composite_fwd")
     composite_fwd.launches += 1
-    return out
+    return (out, state) if return_state else out
 
 
 composite_fwd.launches = 0
@@ -354,7 +385,7 @@ def _check_kernel_inputs(what, params, counts, tile_h, tile_w, named=()):
 
 
 def composite_bwd_reference(params, counts, fo, go, tile_h, tile_w,
-                            tiles_x):
+                            tiles_x, state=None):
     """Plain version of K2ᵇ: the VJP of K2 at ``params`` for the output
     cotangent ``go`` [T, 8, P], given K2's output ``fo``. Returns dparams
     like params [T, MPT, R].
@@ -367,87 +398,128 @@ def composite_bwd_reference(params, counts, fo, go, tile_h, tile_w,
     op·e < 0.99 (unclamped), else 0. It takes the gradient of the tile-local
     quadratic directly in (x̄, ȳ, A, B, C) — the same numbers as chaining
     lgm_tpu's coefficient cotangents, without their cancellation — and
-    dop = Σ_p dpower / max(op, 1e-12), dcol = Σ_p go·w, in plain f32."""
+    dop = Σ_p dpower / max(op, 1e-12), dcol = Σ_p go·w, in plain f32.
+
+    Without ``state`` every chunk starts from the previous one's end (the
+    replay). Given K2's ``state`` [T, MPT/128, 6, P], each chunk starts
+    on its own from the transmittance stored at its boundary and the
+    prefix Σ_c go_c·acc_c of the stored accumulators, and is live where
+    it starts inside the tile's count and the stored transmittance passes
+    the forward's vote: the kernel's schedule. The chunks are then taken
+    last to first, which gives the same result, since none reads
+    another's."""
     T, MPT, R = params.shape
     P = tile_h * tile_w
     dev = params.device
     pix = torch.arange(P, device=dev)
-    lx = (pix % tile_w).float()
-    ly = torch.div(pix, tile_w, rounding_mode="floor").float()
     tid = torch.arange(T, device=dev)
-    tox = ((tid % tiles_x) * tile_w).float()[:, None, None]
-    toy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile_h
-           ).float()[:, None, None]
+    geo = dict(
+        lx=(pix % tile_w).float(),
+        ly=torch.div(pix, tile_w, rounding_mode="floor").float(),
+        tox=((tid % tiles_x) * tile_w).float()[:, None, None],
+        toy=(torch.div(tid, tiles_x, rounding_mode="floor") * tile_h
+             ).float()[:, None, None],
+        # U_eff: channels r, g, b, alpha, depth, plus gT * T_final (row 4).
+        u_eff=((go[:, 0:6] * fo[:, 0:6]).sum(dim=1))[:, None, :],
+        gcol=go[:, None, :, :])                                  # [T,1,8,P]
     counts = counts.long()
-    # U_eff: channels r, g, b, alpha, depth, plus gT * T_final (row 4).
-    u_eff = ((go[:, 0:6] * fo[:, 0:6]).sum(dim=1))[:, None, :]   # [T, 1, P]
-    gcol = go[:, None, :, :]                                      # [T,1,8,P]
-
-    Tr = torch.ones(T, 1, P, device=dev)
-    pref = torch.zeros(T, 1, P, device=dev)
     dparams = torch.zeros_like(params)
-    for c0 in range(0, MPT, G_CHUNK):
-        live = (c0 < counts) & (Tr.amax(dim=(1, 2)) > T_EPS)          # [T]
-        if not bool(live.any()):
-            break
-        blk = params[:, c0:c0 + G_CHUNK]                             # [T,G,R]
-        A, B, C = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
-        op = blk[..., 5:6]
-        dx = lx - (blk[..., 0:1] - tox)                              # [T,G,P]
-        dy = ly - (blk[..., 1:2] - toy)
-        power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
-        araw = op * torch.exp(power)
-        use = live[:, None, None] & (power <= 0.0) & (araw >= ALPHA_MIN)
-        alpha = torch.where(use, torch.clamp(araw, max=ALPHA_MAX),
-                            torch.zeros_like(araw))
-        om = 1.0 - alpha
-        cp = torch.cumprod(om, dim=1)
-        t_i = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1) * Tr
-        w = alpha * t_i
-        s = (blk[..., 6:7] * gcol[:, :, 0] + blk[..., 7:8] * gcol[:, :, 1]
-             + blk[..., 8:9] * gcol[:, :, 2] + gcol[:, :, 3])
-        if R > 9:
-            s = s + blk[..., 9:10] * gcol[:, :, 5]
-        pref_i = pref + torch.cumsum(s * w, dim=1)
-        dalpha = s * t_i - (u_eff - pref_i) / torch.clamp(
-            om, min=1.0 - ALPHA_MAX)
-        dalpha = torch.where(alpha > 0.0, dalpha, torch.zeros_like(dalpha))
-        dpower = torch.where(araw < ALPHA_MAX, dalpha * alpha,
-                             torch.zeros_like(dalpha))
-        rows = [
-            (dpower * (A * dx + B * dy)).sum(-1),        # d x̄
-            (dpower * (C * dy + B * dx)).sum(-1),        # d ȳ
-            (-0.5 * dpower * dx * dx).sum(-1),           # d A
-            (-dpower * dx * dy).sum(-1),                 # d B
-            (-0.5 * dpower * dy * dy).sum(-1),           # d C
-            dpower.sum(-1) / torch.clamp(op[..., 0], min=1e-12),   # d op
-        ]
-        rows += [(gcol[:, :, c] * w).sum(-1) for c in (0, 1, 2)]
-        if R > 9:
-            rows.append((gcol[:, :, 5] * w).sum(-1))
-        dparams[:, c0:c0 + G_CHUNK] = torch.stack(rows, dim=-1)
-        pref = pref_i[:, -1:]
-        Tr = Tr * cp[:, -1:]
+    chunks = range(0, MPT, G_CHUNK)
+    if state is None:
+        Tr = torch.ones(T, 1, P, dtype=params.dtype, device=dev)
+        pref = torch.zeros_like(Tr)
+        for c0 in chunks:
+            live = (c0 < counts) & (Tr.amax(dim=(1, 2)) > T_EPS)       # [T]
+            if not bool(live.any()):
+                break
+            Tr, pref = _bwd_chunk(params, dparams, c0, live, Tr, pref, geo)
+        return dparams
+    # Rows of go that weigh the stored accumulators r, g, b, alpha, depth.
+    g_acc = go[:, [0, 1, 2, 3, 5]]                                # [T,5,P]
+    for c0 in reversed(chunks):
+        st = state[:, c0 // G_CHUNK]                                # [T,6,P]
+        Tr = st[:, 0:1]
+        live = (c0 < counts) & (Tr.amax(dim=(1, 2)) > T_EPS)
+        if bool(live.any()):
+            pref = (g_acc * st[:, 1:6]).sum(dim=1, keepdim=True)
+            _bwd_chunk(params, dparams, c0, live, Tr, pref, geo)
     return dparams
 
 
+def _bwd_chunk(params, dparams, c0, live, Tr, pref, geo):
+    """One 128-slot chunk of the plain K2ᵇ for every tile, from each
+    pixel's transmittance ``Tr`` and prefix ``pref`` [T, 1, P] at its
+    start; ``live`` [T] marks the tiles that composite it. Writes the
+    chunk's rows of ``dparams`` and returns (Tr, pref) at its end."""
+    R = params.shape[2]
+    gcol = geo["gcol"]
+    blk = params[:, c0:c0 + G_CHUNK]                                 # [T,G,R]
+    A, B, C = blk[..., 2:3], blk[..., 3:4], blk[..., 4:5]
+    op = blk[..., 5:6]
+    dx = geo["lx"] - (blk[..., 0:1] - geo["tox"])                    # [T,G,P]
+    dy = geo["ly"] - (blk[..., 1:2] - geo["toy"])
+    power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+    araw = op * torch.exp(power)
+    use = live[:, None, None] & (power <= 0.0) & (araw >= ALPHA_MIN)
+    alpha = torch.where(use, torch.clamp(araw, max=ALPHA_MAX),
+                        torch.zeros_like(araw))
+    om = 1.0 - alpha
+    cp = torch.cumprod(om, dim=1)
+    t_i = torch.cat([torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1) * Tr
+    w = alpha * t_i
+    s = (blk[..., 6:7] * gcol[:, :, 0] + blk[..., 7:8] * gcol[:, :, 1]
+         + blk[..., 8:9] * gcol[:, :, 2] + gcol[:, :, 3])
+    if R > 9:
+        s = s + blk[..., 9:10] * gcol[:, :, 5]
+    pref_i = pref + torch.cumsum(s * w, dim=1)
+    dalpha = s * t_i - (geo["u_eff"] - pref_i) / torch.clamp(
+        om, min=1.0 - ALPHA_MAX)
+    dalpha = torch.where(alpha > 0.0, dalpha, torch.zeros_like(dalpha))
+    dpower = torch.where(araw < ALPHA_MAX, dalpha * alpha,
+                         torch.zeros_like(dalpha))
+    rows = [
+        (dpower * (A * dx + B * dy)).sum(-1),        # d x̄
+        (dpower * (C * dy + B * dx)).sum(-1),        # d ȳ
+        (-0.5 * dpower * dx * dx).sum(-1),           # d A
+        (-dpower * dx * dy).sum(-1),                 # d B
+        (-0.5 * dpower * dy * dy).sum(-1),           # d C
+        dpower.sum(-1) / torch.clamp(op[..., 0], min=1e-12),   # d op
+    ]
+    rows += [(gcol[:, :, c] * w).sum(-1) for c in (0, 1, 2)]
+    if R > 9:
+        rows.append((gcol[:, :, 5] * w).sum(-1))
+    dparams[:, c0:c0 + G_CHUNK] = torch.stack(rows, dim=-1)
+    return Tr * cp[:, -1:], pref_i[:, -1:]
+
+
 def composite_bwd(params, counts, fo, go, tile_h: int, tile_w: int,
-                  tiles_x: int) -> torch.Tensor:
-    """K2ᵇ on CUDA tensors, ``composite_bwd_reference`` on CPU tensors."""
+                  tiles_x: int, state=None) -> torch.Tensor:
+    """K2ᵇ on CUDA tensors, fed K2's ``state`` (``composite_fwd(...,
+    return_state=True)``), which it requires; ``composite_bwd_reference``
+    on CPU tensors, with or without the state."""
     if params.device.type == "cpu":
         return composite_bwd_reference(params, counts, fo, go, tile_h,
-                                       tile_w, tiles_x)
+                                       tile_w, tiles_x, state)
     if params.device.type != "cuda":
         raise ValueError(f"composite_bwd: unsupported device {params.device}")
     T, MPT, R = params.shape
+    P = tile_h * tile_w
     _check_kernel_inputs("composite_bwd", params, counts, tile_h, tile_w,
                          (("fo", fo), ("go", go)))
+    nc = MPT // G_CHUNK
+    if (state is None or state.dtype != torch.float32
+            or state.shape != (T, nc, 6, P) or state.device != params.device
+            or not state.is_contiguous()):
+        raise ValueError(
+            f"composite_bwd kernel starts each (tile, chunk) block from K2's "
+            f"state: a contiguous f32 [{T}, {nc}, 6, {P}] tensor on "
+            f"{params.device} from composite_fwd(..., return_state=True)")
     dparams = torch.empty_like(params)
     lib = _build.load("composite_bwd", _BWD_SIGNATURES)
     err = lib.composite_bwd_f32(
         params.data_ptr(), counts.data_ptr(), fo.data_ptr(), go.data_ptr(),
-        dparams.data_ptr(), T, MPT, R, tile_h, tile_w, tiles_x,
-        torch.cuda.current_stream(params.device).cuda_stream,
+        state.data_ptr(), dparams.data_ptr(), T, MPT, R, tile_h, tile_w,
+        tiles_x, torch.cuda.current_stream(params.device).cuda_stream,
         params.device.index)
     _build.check(lib, err, "composite_bwd")
     composite_bwd.launches += 1
@@ -458,28 +530,30 @@ composite_bwd.launches = 0
 
 
 class _Composite(torch.autograd.Function):
-    """K2 forward, K2ᵇ backward; residuals params, counts and the output
-    (``_cf_fwd``)."""
+    """K2 forward, K2ᵇ backward; residuals params, counts, the output
+    (``_cf_fwd``) and K2's chunk-boundary state."""
 
     @staticmethod
     def forward(ctx, params, counts, tile_h, tile_w, tiles_x):
-        out = composite_fwd(params, counts, tile_h, tile_w, tiles_x)
-        ctx.save_for_backward(params, counts, out)
+        out, state = composite_fwd(params, counts, tile_h, tile_w, tiles_x,
+                                   return_state=True)
+        ctx.save_for_backward(params, counts, out, state)
         ctx.tiling = (tile_h, tile_w, tiles_x)
         return out
 
     @staticmethod
     def backward(ctx, go):
-        params, counts, out = ctx.saved_tensors
+        params, counts, out, state = ctx.saved_tensors
         dparams = composite_bwd(params, counts, out, go.contiguous(),
-                                *ctx.tiling)
+                                *ctx.tiling, state=state)
         return dparams, None, None, None, None
 
 
 def composite(params, counts, tile_h: int, tile_w: int,
               tiles_x: int) -> torch.Tensor:
     """The per-tile composite with a gradient: ``composite_fwd``, and
-    ``composite_bwd`` on the way back when autograd records the call."""
+    ``composite_bwd`` on the way back when autograd records the call (the
+    forward then writes the state the backward starts from)."""
     if torch.is_grad_enabled() and params.requires_grad:
         return _Composite.apply(params, counts, tile_h, tile_w, tiles_x)
     return composite_fwd(params, counts, tile_h, tile_w, tiles_x)

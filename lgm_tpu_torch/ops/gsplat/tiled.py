@@ -19,7 +19,10 @@ names ``"pallas_v1"``. Per view:
    (``csrc/tiled_bwd.cu``) backward on CUDA tensors, their plain versions
    ``tile_composite_reference`` / ``tile_composite_bwd_reference`` on CPU
    tensors. The backward saves params_tiles, counts, pf and the output, as
-   ``_tc_fwd`` does.
+   ``_tc_fwd`` does, and K3's pixel state at every 128-slot chunk boundary
+   (``[T, K/128, 5, P]``: T and the sums r, g, b, alpha), which K3 writes
+   only when asked: K3ᵇ runs one block per (tile, chunk), each starting
+   from its chunk's stored state.
 5. ``[T, P, 8]`` -> image (unclamped, ``rgb + T * bg``) and alpha; this
    backend has no depth channel.
 
@@ -47,21 +50,23 @@ from lgm_tpu_torch.ops.gsplat.projection import (ALPHA_MAX, ALPHA_MIN,
                                                   project_gaussians)
 
 # Slots per compositing chunk (the TPU's lane width; the kernels' staging
-# unit), the transmittance early-out threshold, the packed matrix's rows.
+# unit), the transmittance early-out threshold, the packed matrix's rows,
+# the rows of the chunk-boundary state (T, r, g, b, alpha).
 G_CHUNK = 128
 T_EPS = 1e-4
 N_ROWS = 16
+STATE_ROWS = 5
 
 _FWD_SIGNATURES = {
     "tiled_fwd_f32": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
 _BWD_SIGNATURES = {
     "tiled_bwd_f32": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
@@ -191,21 +196,33 @@ def _live_chunks(counts, transmittance, c0: int):
     return (c0 < counts) & (transmittance.amax(dim=1) > T_EPS)
 
 
-def _composite_plain(params_tiles, counts, pf):
+def _composite_plain(params_tiles, counts, pf, with_state=False):
     """K3's function in plain PyTorch, all tiles at once, chunk by chunk.
-    Returns (out [T, P, 8], chunks [T], used): ``chunks`` counts the
+    Returns (out [T, P, 8], chunks [T], used, state): ``chunks`` counts the
     chunks each tile composited, ``used`` the (pixel, slot) pairs that
-    passed the alpha test."""
+    passed the alpha test, and ``state`` (None unless ``with_state``) is
+    K3's ``[T, K/128, 5, P]``: at the boundary before each chunk, each
+    pixel's transmittance and its sums r, g, b, alpha; past the chunks a
+    tile composites, the tile's final values."""
     T, _, K = params_tiles.shape
     P = pf.shape[0]
+    dev, dtype = params_tiles.device, params_tiles.dtype
     counts = counts.long()
-    Tr = torch.ones(T, P, device=params_tiles.device)
-    acc = torch.zeros(T, P, 8, device=params_tiles.device)
+    Tr = torch.ones(T, P, dtype=dtype, device=dev)
+    acc = torch.zeros(T, P, 8, dtype=dtype, device=dev)
     chunks = torch.zeros_like(counts)
     used = 0
+    state = (torch.empty(T, K // G_CHUNK, STATE_ROWS, P, dtype=dtype,
+                         device=dev) if with_state else None)
     for c0 in range(0, K, G_CHUNK):
+        c = c0 // G_CHUNK
+        if state is not None:
+            state[:, c, 0] = Tr
+            state[:, c, 1:5] = acc[..., 0:4].transpose(1, 2)
         live = _live_chunks(counts, Tr, c0)
         if not bool(live.any()):
+            if state is not None:
+                state[:, c + 1:] = state[:, c:c + 1]
             break
         chunks += live
         blk = params_tiles[:, :, c0:c0 + G_CHUNK]            # [T, 16, G]
@@ -219,7 +236,7 @@ def _composite_plain(params_tiles, counts, pf):
         acc[..., 3] += w.sum(dim=2)
         Tr = Tr * cp[..., -1]
     acc[..., 4] = Tr
-    return acc, chunks, used
+    return acc, chunks, used, state
 
 
 def _check_inputs(what, params_tiles, counts, pf, named=()):
@@ -249,28 +266,37 @@ def _check_inputs(what, params_tiles, counts, pf, named=()):
                              f"[{T}, {P}, 8] tensor on {dev}")
 
 
-def tile_composite_reference(params_tiles, counts, pf):
+def tile_composite_reference(params_tiles, counts, pf, return_state=False):
     """Plain version of K3: params_tiles [T, 16, K], counts [T], pf [P, 8]
-    -> [T, P, 8] (cols 0-2 rgb, 3 alpha, 4 final T, 5-7 zero)."""
-    return _composite_plain(params_tiles, counts, pf)[0]
+    -> [T, P, 8] (cols 0-2 rgb, 3 alpha, 4 final T, 5-7 zero); with
+    ``return_state``, (out, state [T, K/128, 5, P]) as K3 writes them."""
+    out, _, _, state = _composite_plain(params_tiles, counts, pf,
+                                        return_state)
+    return (out, state) if return_state else out
 
 
 def tile_composite_work(params_tiles, counts, pf) -> dict:
     """The data-dependent work of K3 and K3ᵇ on these inputs, which their
     bounds are counted from: ``chunks``, the 128-slot chunks composited
     over all tiles, ``pairs``, the (pixel, slot) pairs they hold (one exp
-    each), and ``used``, the pairs that pass the alpha test."""
-    _, chunks, used = _composite_plain(params_tiles, counts, pf)
+    each), ``used``, the pairs that pass the alpha test, and
+    ``tile_chunks`` [T], the chunks each tile composites."""
+    _, chunks, used, _ = _composite_plain(params_tiles, counts, pf)
     n = int(chunks.sum())
-    return {"chunks": n, "pairs": n * G_CHUNK * pf.shape[0], "used": used}
+    return {"chunks": n, "pairs": n * G_CHUNK * pf.shape[0], "used": used,
+            "tile_chunks": chunks}
 
 
-def tile_composite_fwd(params_tiles, counts, pf) -> torch.Tensor:
+def tile_composite_fwd(params_tiles, counts, pf, return_state=False):
     """K3 on CUDA tensors, ``tile_composite_reference`` on CPU tensors.
     Rows 7 and 11-15 of params_tiles and columns 6-7 of pf are the
-    layout's constants (0, 1, 0...) and are not read."""
+    layout's constants (0, 1, 0...) and are not read. With
+    ``return_state`` it also writes the pixel state at every chunk
+    boundary, which ``tile_composite_bwd`` starts its blocks from, and
+    returns (out, state)."""
     if params_tiles.device.type == "cpu":
-        return tile_composite_reference(params_tiles, counts, pf)
+        return tile_composite_reference(params_tiles, counts, pf,
+                                        return_state)
     if params_tiles.device.type != "cuda":
         raise ValueError(
             f"tile_composite_fwd: unsupported device {params_tiles.device}")
@@ -283,21 +309,25 @@ def tile_composite_fwd(params_tiles, counts, pf) -> torch.Tensor:
     P = pf.shape[0]
     out = torch.empty(T, P, 8, dtype=torch.float32,
                       device=params_tiles.device)
+    state = (torch.empty(T, K // G_CHUNK, STATE_ROWS, P, dtype=torch.float32,
+                         device=params_tiles.device)
+             if return_state else None)
     lib = _build.load("tiled_fwd", _FWD_SIGNATURES)
     err = lib.tiled_fwd_f32(
         params_tiles.data_ptr(), counts.data_ptr(), pf.data_ptr(),
-        out.data_ptr(), T, K, P,
+        out.data_ptr(), state.data_ptr() if return_state else None, T, K, P,
         torch.cuda.current_stream(params_tiles.device).cuda_stream,
         params_tiles.device.index)
     _build.check(lib, err, "tiled_fwd")
     tile_composite_fwd.launches += 1
-    return out
+    return (out, state) if return_state else out
 
 
 tile_composite_fwd.launches = 0
 
 
-def tile_composite_bwd_reference(params_tiles, counts, pf, fo, go):
+def tile_composite_bwd_reference(params_tiles, counts, pf, fo, go,
+                                 state=None):
     """Plain version of K3ᵇ: the VJP of K3 at ``params_tiles`` for the
     output cotangent ``go`` [T, P, 8], given K3's output ``fo``. Returns
     dparams [T, 16, K].
@@ -310,65 +340,105 @@ def tile_composite_bwd_reference(params_tiles, counts, pf, fo, go):
     dpower = dalpha·α where op·e^power < 0.99, else 0. Rows 0-5 get
     Σ_pixels feature·dpower, row 6 Σ_pixels dalpha·e^power over the
     unclamped pairs, rows 8-10 Σ_pixels gC·w; every other row, and every
-    chunk the forward skipped, is zero."""
+    chunk the forward skipped, is zero.
+
+    Without ``state`` every chunk starts from the previous one's end (the
+    replay). Given K3's ``state`` [T, K/128, 5, P], each chunk starts on
+    its own from the transmittance stored at its boundary and the prefix
+    Σ_{c<4} go_c·acc_c of the stored sums, and is live where it starts
+    inside the tile's count and the stored transmittance passes the
+    forward's vote: the kernel's schedule, taken last chunk first."""
     T, _, K = params_tiles.shape
+    P = pf.shape[0]
     dev = params_tiles.device
     counts = counts.long()
-    t_final = fo[..., 4:5]
-    g_t = go[..., 4:5]
-    u_total = (go[..., 0:4] * fo[..., 0:4]).sum(dim=2, keepdim=True)
-
-    Tr = torch.ones(T, pf.shape[0], device=dev)
-    pref = torch.zeros(T, pf.shape[0], 1, device=dev)
+    terms = dict(t_final=fo[..., 4:5], g_t=go[..., 4:5],
+                 u_total=(go[..., 0:4] * fo[..., 0:4]).sum(dim=2,
+                                                           keepdim=True))
     dparams = torch.zeros_like(params_tiles)
-    for c0 in range(0, K, G_CHUNK):
+    chunks = range(0, K, G_CHUNK)
+    if state is None:
+        Tr = torch.ones(T, P, dtype=params_tiles.dtype, device=dev)
+        pref = torch.zeros(T, P, 1, dtype=params_tiles.dtype, device=dev)
+        for c0 in chunks:
+            live = _live_chunks(counts, Tr, c0)
+            if not bool(live.any()):
+                break
+            Tr, pref = _bwd_chunk(params_tiles, pf, go, dparams, c0, live,
+                                  Tr, pref, terms)
+        return dparams
+    for c0 in reversed(chunks):
+        st = state[:, c0 // G_CHUNK]                               # [T,5,P]
+        Tr = st[:, 0]
         live = _live_chunks(counts, Tr, c0)
-        if not bool(live.any()):
-            break
-        blk = params_tiles[:, :, c0:c0 + G_CHUNK]            # [T, 16, G]
-        alpha, araw, e = _chunk_alpha(pf, blk, live)         # [T, P, G]
-        om = 1.0 - alpha
-        cp = torch.cumprod(om, dim=2)
-        t_i = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]],
-                        dim=2) * Tr[:, :, None]
-        w = alpha * t_i
-        s = torch.matmul(go[..., 0:3], blk[:, 8:11]) + go[..., 3:4]
-        pref_i = pref + torch.cumsum(s * w, dim=2)
-        om_safe = torch.clamp(om, min=1.0 - ALPHA_MAX)
-        dalpha = (s * t_i - (u_total - pref_i) / om_safe
-                  - g_t * t_final / om_safe)
-        dalpha = torch.where(alpha > 0.0, dalpha, torch.zeros_like(dalpha))
-        unclamped = araw < ALPHA_MAX
-        dpower = torch.where(unclamped, dalpha * alpha,
-                             torch.zeros_like(dalpha))
-        dop = torch.where(unclamped, dalpha * e, torch.zeros_like(dalpha))
-        out = dparams[:, :, c0:c0 + G_CHUNK]
-        out[:, 0:6] = torch.matmul(pf[:, 0:6].T, dpower)
-        out[:, 6] = dop.sum(dim=1)
-        out[:, 8:11] = torch.matmul(go[..., 0:3].transpose(1, 2), w)
-        pref = pref_i[..., -1:]
-        Tr = Tr * cp[..., -1]
+        if bool(live.any()):
+            pref = (go[..., 0:4] * st[:, 1:5].transpose(1, 2)).sum(
+                dim=2, keepdim=True)
+            _bwd_chunk(params_tiles, pf, go, dparams, c0, live, Tr, pref,
+                       terms)
     return dparams
 
 
-def tile_composite_bwd(params_tiles, counts, pf, fo, go) -> torch.Tensor:
-    """K3ᵇ on CUDA tensors, ``tile_composite_bwd_reference`` on CPU
-    tensors."""
+def _bwd_chunk(params_tiles, pf, go, dparams, c0, live, Tr, pref, terms):
+    """One 128-slot chunk of the plain K3ᵇ for every tile, from each
+    pixel's transmittance ``Tr`` [T, P] and prefix ``pref`` [T, P, 1] at
+    its start; ``live`` [T] marks the tiles that composite it. Writes the
+    chunk's columns of ``dparams`` and returns (Tr, pref) at its end."""
+    blk = params_tiles[:, :, c0:c0 + G_CHUNK]                # [T, 16, G]
+    alpha, araw, e = _chunk_alpha(pf, blk, live)             # [T, P, G]
+    om = 1.0 - alpha
+    cp = torch.cumprod(om, dim=2)
+    t_i = torch.cat([torch.ones_like(cp[..., :1]), cp[..., :-1]],
+                    dim=2) * Tr[:, :, None]
+    w = alpha * t_i
+    s = torch.matmul(go[..., 0:3], blk[:, 8:11]) + go[..., 3:4]
+    pref_i = pref + torch.cumsum(s * w, dim=2)
+    om_safe = torch.clamp(om, min=1.0 - ALPHA_MAX)
+    dalpha = (s * t_i - (terms["u_total"] - pref_i) / om_safe
+              - terms["g_t"] * terms["t_final"] / om_safe)
+    dalpha = torch.where(alpha > 0.0, dalpha, torch.zeros_like(dalpha))
+    unclamped = araw < ALPHA_MAX
+    dpower = torch.where(unclamped, dalpha * alpha,
+                         torch.zeros_like(dalpha))
+    dop = torch.where(unclamped, dalpha * e, torch.zeros_like(dalpha))
+    out = dparams[:, :, c0:c0 + G_CHUNK]
+    out[:, 0:6] = torch.matmul(pf[:, 0:6].T.to(dpower.dtype), dpower)
+    out[:, 6] = dop.sum(dim=1)
+    out[:, 8:11] = torch.matmul(go[..., 0:3].transpose(1, 2), w)
+    return Tr * cp[..., -1], pref_i[..., -1:]
+
+
+def tile_composite_bwd(params_tiles, counts, pf, fo, go,
+                       state=None) -> torch.Tensor:
+    """K3ᵇ on CUDA tensors, fed K3's ``state`` (``tile_composite_fwd(...,
+    return_state=True)``), which it requires; ``tile_composite_bwd_reference``
+    on CPU tensors, with or without the state."""
     if params_tiles.device.type == "cpu":
-        return tile_composite_bwd_reference(params_tiles, counts, pf, fo, go)
+        return tile_composite_bwd_reference(params_tiles, counts, pf, fo, go,
+                                            state)
     if params_tiles.device.type != "cuda":
         raise ValueError(
             f"tile_composite_bwd: unsupported device {params_tiles.device}")
     _check_inputs("tile_composite_bwd", params_tiles, counts, pf,
                   (("fo", fo), ("go", go)))
     T, _, K = params_tiles.shape
-    # The kernel writes rows 0-6 and 8-10 of the chunks it replays.
+    P = pf.shape[0]
+    shape = (T, K // G_CHUNK, STATE_ROWS, P)
+    if (state is None or state.dtype != torch.float32
+            or state.shape != shape or state.device != params_tiles.device
+            or not state.is_contiguous()):
+        raise ValueError(
+            f"tile_composite_bwd kernel starts each (tile, chunk) block from "
+            f"K3's state: a contiguous f32 {list(shape)} tensor on "
+            f"{params_tiles.device} from tile_composite_fwd(..., "
+            f"return_state=True)")
+    # The kernel writes rows 0-6 and 8-10 of the slots it replays.
     dparams = torch.zeros_like(params_tiles)
     lib = _build.load("tiled_bwd", _BWD_SIGNATURES)
     err = lib.tiled_bwd_f32(
         params_tiles.data_ptr(), counts.data_ptr(), pf.data_ptr(),
-        fo.data_ptr(), go.data_ptr(), dparams.data_ptr(), T, K, pf.shape[0],
-        torch.cuda.current_stream(params_tiles.device).cuda_stream,
+        fo.data_ptr(), go.data_ptr(), state.data_ptr(), dparams.data_ptr(),
+        T, K, P, torch.cuda.current_stream(params_tiles.device).cuda_stream,
         params_tiles.device.index)
     _build.check(lib, err, "tiled_bwd")
     tile_composite_bwd.launches += 1
@@ -379,26 +449,28 @@ tile_composite_bwd.launches = 0
 
 
 class _TileComposite(torch.autograd.Function):
-    """K3 forward, K3ᵇ backward; residuals params_tiles, counts, pf and
-    the output (``_tc_fwd``)."""
+    """K3 forward, K3ᵇ backward; residuals params_tiles, counts, pf, the
+    output (``_tc_fwd``) and K3's chunk-boundary state."""
 
     @staticmethod
     def forward(ctx, params_tiles, counts, pf):
-        out = tile_composite_fwd(params_tiles, counts, pf)
-        ctx.save_for_backward(params_tiles, counts, pf, out)
+        out, state = tile_composite_fwd(params_tiles, counts, pf,
+                                        return_state=True)
+        ctx.save_for_backward(params_tiles, counts, pf, out, state)
         return out
 
     @staticmethod
     def backward(ctx, go):
-        params_tiles, counts, pf, out = ctx.saved_tensors
+        params_tiles, counts, pf, out, state = ctx.saved_tensors
         return tile_composite_bwd(params_tiles, counts, pf, out,
-                                  go.contiguous()), None, None
+                                  go.contiguous(), state), None, None
 
 
 def tile_composite(params_tiles, counts, pf) -> torch.Tensor:
     """Composite binned splats, [T, 16, K] -> [T, P, 8] (rgb | A | T | 0s),
     with a gradient: ``tile_composite_fwd``, and ``tile_composite_bwd`` on
-    the way back when autograd records the call."""
+    the way back when autograd records the call (the forward then writes
+    the state the backward starts from)."""
     if torch.is_grad_enabled() and params_tiles.requires_grad:
         return _TileComposite.apply(params_tiles, counts, pf)
     return tile_composite_fwd(params_tiles, counts, pf)

@@ -187,8 +187,9 @@ def test_flatsort_empty_scene():
         torch.as_tensor(g), torch.as_tensor(view), 32, TAN, 1.0, 8, 32, 4,
         1024, True)
     assert int(counts.sum()) == 0
-    assert fs.composite_work(params, counts, 8, 32, 1) == {
-        "pairs": 0, "used": 0, "slots": 0}
+    work = fs.composite_work(params, counts, 8, 32, 1)
+    assert (work["pairs"], work["used"], work["slots"]) == (0, 0, 0)
+    assert torch.all(work["tile_slots"] == 0)
 
 
 def test_flatsort_dup_overflow_matches_jax():
@@ -242,17 +243,21 @@ def test_composite_bwd_reference_matches_jax_vjp(with_depth):
     ref = np.asarray(vjp(jnp.asarray(go))[0]).transpose(0, 1, 3, 2).reshape(
         T, MPT, R)
     pt, ct = torch.as_tensor(jparams), torch.as_tensor(jcounts)
-    fo = fs.composite_reference(pt, ct, th, tw, S // tw)
-    ours = fs.composite_bwd(pt, ct, fo, torch.as_tensor(go), th, tw,
-                            S // tw).numpy()
-    assert ours.shape == ref.shape
-    for r in range(R):
-        np.testing.assert_allclose(ours[..., r], ref[..., r],
-                                   atol=1e-4 * np.abs(ref[..., r]).max(),
-                                   err_msg=f"row {r}")
-    # Slots past each tile's count get zero rows.
-    dead = np.arange(MPT)[None, :] >= jcounts[:, None]
-    assert np.all(ours[dead] == 0.0)
+    fo, state = fs.composite_reference(pt, ct, th, tw, S // tw,
+                                       return_state=True)
+    # The replay, and each chunk on its own from K2's stored state (the
+    # kernel's schedule).
+    for st in (None, state):
+        ours = fs.composite_bwd(pt, ct, fo, torch.as_tensor(go), th, tw,
+                                S // tw, state=st).numpy()
+        assert ours.shape == ref.shape
+        for r in range(R):
+            np.testing.assert_allclose(ours[..., r], ref[..., r],
+                                       atol=1e-4 * np.abs(ref[..., r]).max(),
+                                       err_msg=f"row {r}")
+        # Slots past each tile's count get zero rows.
+        dead = np.arange(MPT)[None, :] >= jcounts[:, None]
+        assert np.all(ours[dead] == 0.0)
 
 
 def test_composite_bwd_reference_is_autograd_of_plain_forward():
@@ -282,6 +287,93 @@ def test_composite_bwd_reference_is_autograd_of_plain_forward():
         torch.testing.assert_close(
             ours[..., r], p.grad[..., r], rtol=0,
             atol=1e-4 * float(p.grad[..., r].abs().max()))
+
+
+def _state_scene():
+    """Faint splats packed at the centre, which fill tiles to MPT = 1,024
+    slots, and opaque ones on one side, which stop other tiles early: at
+    64², 16 x 16 tiles, tiles 5 and 9 composite all 1,024 slots and eight
+    others stop after their first chunk."""
+    rng = np.random.default_rng(21)
+    g = scene(2400, seed=21)
+    g[:, 0:3] = rng.normal(0, 0.05, (2400, 3))
+    g[:, 3] = rng.uniform(0.005, 0.02, 2400)
+    g[:, 4:7] = rng.uniform(0.01, 0.04, (2400, 3))
+    g[:300, 0:3] = rng.normal(0, 0.3, (300, 3))
+    g[:300, 0] = rng.uniform(0.15, 0.6, 300)
+    g[:300, 3] = 1.0
+    g[:300, 4:7] = 0.15
+    S, th, tw = 64, 16, 16
+    params, counts = fs._prepare_view(
+        torch.as_tensor(g), torch.as_tensor(view_of()), S, TAN, 1.0, th, tw,
+        16, 1024, True)
+    params = params.detach()
+    work = fs.composite_work(params, counts, th, tw, S // tw)
+    walked = work["tile_slots"]
+    assert int(counts.max()) == 1024 and int(walked.max()) == 1024
+    assert bool((walked < counts.long()).any())   # early-out
+    return params, counts, (th, tw, S // tw), walked
+
+
+def test_composite_reference_state_is_the_running_state():
+    """The plain K2's state: at each 128-slot boundary c, T and the
+    accumulators equal the output of the forward stopped there (counts
+    capped at 128 c); and a tile's accumulators at its last composited
+    chunk's boundary, carried through that chunk alone, give the
+    output."""
+    params, counts, tiling, walked = _state_scene()
+    out, state = fs.composite_reference(params, counts, *tiling,
+                                        return_state=True)
+    T, NC = state.shape[:2]
+    assert state.shape == (T, 1024 // 128, 6, tiling[0] * tiling[1])
+    rows = [4, 0, 1, 2, 3, 5]            # T, r, g, b, alpha, depth
+    for c in range(NC):
+        stopped = fs.composite_reference(
+            params, torch.clamp(counts, max=128 * c), *tiling)
+        torch.testing.assert_close(state[:, c], stopped[:, rows], rtol=1e-5,
+                                   atol=1e-6)
+    # Carry each tile from its last composited chunk's boundary: that
+    # chunk alone (the earlier ones zeroed, counts capped at its end).
+    last = torch.clamp((walked + 127) // 128 - 1, min=0)          # [T]
+    slot = torch.arange(params.shape[1])
+    rest = torch.where((slot[None, :] < 128 * last[:, None])[..., None],
+                       torch.zeros_like(params), params)
+    tail = fs.composite_reference(
+        rest, torch.minimum(counts.long(), 128 * (last + 1)).int(), *tiling)
+    st = state[torch.arange(T), last]                             # [T,6,P]
+    carried = torch.cat([st[:, 1:5] + st[:, 0:1] * tail[:, 0:4],
+                         (st[:, 0] * tail[:, 4])[:, None],
+                         (st[:, 5] + st[:, 0] * tail[:, 5])[:, None]], 1)
+    torch.testing.assert_close(carried, out[:, 0:6], rtol=1e-5, atol=1e-6)
+
+
+def test_composite_bwd_reference_state_path_matches_replay():
+    """The plain K2ᵇ chunk by chunk from K2's state (the chunks taken last
+    to first, so none can lean on another) against its replay, on a scene
+    with a full tile and tiles that stop early. In f64 the two schedules
+    are one function: 1e-9 of each row's scale. In f32 they round apart:
+    1e-4 of each row's scale, as the kernel is held (on this scene the
+    f32 replay's own d op row is 2.2e-5 of its scale off the f64 one, the
+    state path's 1.1e-5)."""
+    params, counts, tiling, walked = _state_scene()
+    go = np.random.default_rng(8).normal(
+        0, 1, (params.shape[0], 8, tiling[0] * tiling[1]))
+    for dtype, rel in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        p = params.to(dtype)
+        g = torch.as_tensor(go, dtype=dtype)
+        fo, state = fs.composite_reference(p, counts, *tiling,
+                                           return_state=True)
+        replay = fs.composite_bwd_reference(p, counts, fo, g, *tiling)
+        chunked = fs.composite_bwd_reference(p, counts, fo, g, *tiling,
+                                             state=state)
+        for r in range(p.shape[2]):
+            scale = float(replay[..., r].abs().max())
+            torch.testing.assert_close(chunked[..., r], replay[..., r],
+                                       rtol=0, atol=rel * scale)
+        # Slots the forward never reached get zero rows on both paths.
+        reached = torch.arange(p.shape[1])[None, :] < walked[:, None]
+        assert torch.all(chunked[~reached] == 0)
+        assert torch.all(replay[~reached] == 0)
 
 
 def _grad_views(g, views, bg, tgt, S, backend, **kw):

@@ -110,6 +110,9 @@ def test_mha_fwd_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("tile", [(32, 32), (8, 32)])
 def test_composite_fwd_kernel_matches_plain(cuda, tile):
+    """K2 vs its plain version, and the pixel state it writes at each
+    128-slot boundary when asked vs the plain version's (the same output
+    either way)."""
     th, tw = tile
     rng = np.random.default_rng(4)
     n, S = 3000, 128
@@ -131,10 +134,21 @@ def test_composite_fwd_kernel_matches_plain(cuda, tile):
             args = (params, counts, th, tw, S // tw)
             out = fs.composite_fwd(*args)
             ref = fs.composite_reference(*args)
+            out_s, state = fs.composite_fwd(*args, return_state=True)
+            _, ref_state = fs.composite_reference(*args, return_state=True)
         torch.cuda.synchronize()
         assert int(counts.max()) > 128  # several chunks per tile
         # f32 order + the 1e-4 early-out flipping at its threshold.
         assert (out - ref).abs().max().item() <= 1e-3
+        assert torch.equal(out_s, out)
+        assert state.shape == (params.shape[0], 4, 6, th * tw)
+        assert (state - ref_state).abs().max().item() <= 1e-3
+        assert torch.all(state[:, 0, 0] == 1)
+        assert torch.all(state[:, 0, 1:] == 0)
+        # Past a tile's last composited chunk, a boundary holds its final
+        # values.
+        done = fs.composite_work(*args)["tile_slots"] <= 3 * 128
+        assert torch.equal(state[done, -1, 0], out[done, 4])
 
 
 def _bf16(rng, shape, dev):
@@ -231,39 +245,87 @@ def _assert_rows_close(ours, ref, rel=1e-4):
         assert err <= rel * scale + 1e-6, (r, err, scale)
 
 
-@pytest.mark.parametrize("tile,opaque", [((32, 32), 0), ((8, 32), 0),
-                                         ((32, 32), 600)])
-def test_composite_bwd_kernel_matches_plain(cuda, tile, opaque):
-    """K2ᵇ vs its plain version on the same slots, forward output and a
-    seeded cotangent, with and without depth, over several 128-slot
-    chunks; with ``opaque``, tiles stop early at T <= 1e-4. f32 sums over
-    the tile's pixels in other orders: 1e-4 of each row's scale."""
-    th, tw = tile
-    rng = np.random.default_rng(5)
+def _heavy_scene(rng, opaque=0):
+    """``_scene(3000)`` plus 3,000 faint small splats packed at the centre,
+    which fill one 32 x 32 tile of a 128² view to its 1,024 slots beside
+    light ones."""
     g = _scene(3000, rng, opaque)
+    faint = _scene(3000, rng)
+    faint[:, 0:3] = rng.normal(0, 0.03, (3000, 3))
+    faint[:, 3] = rng.uniform(0.005, 0.02, 3000)
+    faint[:, 4:7] = rng.uniform(0.01, 0.03, (3000, 3))
+    return np.concatenate([g, faint])
+
+
+def _k2b_inputs(cuda, rng, tile, opaque, heavy, with_depth, mpt=512):
+    th, tw = tile
     S = 128
+    g = _heavy_scene(rng, opaque) if heavy else _scene(3000, rng, opaque)
     view = camera.build_camera_inputs(camera.orbit_camera(10, 30, 1.5)[None],
                                       FOVY, 0.5, 2.5)["cam_view"][0]
+    with torch.no_grad():
+        params, counts = fs._prepare_view(
+            torch.as_tensor(g, device=cuda),
+            torch.as_tensor(view, device=cuda), S, TAN, 1.0, th, tw, 16, mpt,
+            with_depth)
+        args = (th, tw, S // tw)
+        fo, state = fs.composite_fwd(params, counts, *args, return_state=True)
+    go = torch.as_tensor(rng.normal(0, 1, fo.shape), dtype=torch.float32,
+                         device=cuda)
+    return params, counts, fo, go, state, args
+
+
+@pytest.mark.parametrize("tile,opaque,heavy", [
+    ((32, 32), 0, False), ((8, 32), 0, False), ((32, 32), 600, False),
+    ((32, 32), 0, True), ((32, 32), 600, True), ((16, 16), 600, True)])
+def test_composite_bwd_kernel_matches_plain(cuda, tile, opaque, heavy):
+    """K2ᵇ fed K2's state vs its plain replay on the same slots, forward
+    output and a seeded cotangent, with and without depth, over several
+    128-slot chunks; with ``opaque``, tiles stop early at T <= 1e-4; with
+    ``heavy``, one tile is full (1,024 slots) beside light ones. f32 sums
+    over the tile's pixels in other orders: 1e-4 of each row's scale."""
+    rng = np.random.default_rng(5)
+    mpt = 1024 if heavy else 512
     for with_depth in (True, False):
+        params, counts, fo, go, state, args = _k2b_inputs(
+            cuda, rng, tile, opaque, heavy, with_depth, mpt)
         with torch.no_grad():
-            params, counts = fs._prepare_view(
-                torch.as_tensor(g, device=cuda),
-                torch.as_tensor(view, device=cuda), S, TAN, 1.0, th, tw, 16,
-                512, with_depth)
-            args = (th, tw, S // tw)
-            fo = fs.composite_fwd(params, counts, *args)
-            go = torch.as_tensor(rng.normal(0, 1, fo.shape),
-                                 dtype=torch.float32, device=cuda)
             before = fs.composite_bwd.launches
-            ours = fs.composite_bwd(params, counts, fo, go, *args)
+            ours = fs.composite_bwd(params, counts, fo, go, *args,
+                                    state=state)
             ref = fs.composite_bwd_reference(params, counts, fo, go, *args)
+            work = fs.composite_work(params, counts, *args)
         torch.cuda.synchronize()
         assert fs.composite_bwd.launches == before + 1
-        assert int(counts.max()) > 128
+        assert int(counts.max()) == mpt if heavy else int(counts.max()) > 128
         if opaque:
-            work = fs.composite_work(params, counts, *args)
             assert work["slots"] < int(counts.sum())
         _assert_rows_close(ours, ref)
+        # Dead slots and chunks past the early-out get zero rows.
+        walked = (torch.arange(mpt, device=cuda)[None, :]
+                  < work["tile_slots"][:, None])
+        assert torch.all(ours[~walked] == 0)
+
+
+def test_composite_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two K2ᵇ runs on the same inputs give the same bits."""
+    params, counts, fo, go, state, args = _k2b_inputs(
+        cuda, np.random.default_rng(9), (32, 32), 600, True, False, 1024)
+    first = fs.composite_bwd(params, counts, fo, go, *args, state=state)
+    second = fs.composite_bwd(params, counts, fo, go, *args, state=state)
+    assert torch.equal(first, second)
+
+
+def test_composite_bwd_kernel_requires_the_state(cuda):
+    """On the card K2ᵇ starts from K2's state: without it, or with a state
+    of the wrong shape, it raises (no fallback to a replay)."""
+    params, counts, fo, go, state, args = _k2b_inputs(
+        cuda, np.random.default_rng(2), (32, 32), 0, False, False)
+    with pytest.raises(ValueError):
+        fs.composite_bwd(params, counts, fo, go, *args)
+    with pytest.raises(ValueError):
+        fs.composite_bwd(params, counts, fo, go, *args,
+                         state=state[:, :2].contiguous())
 
 
 def test_render_grad_launches_both_kernels(cuda):
@@ -312,49 +374,97 @@ def _rows_first_close(ours, ref, rel=1e-4):
     _assert_rows_close(ours.transpose(1, 2), ref.transpose(1, 2), rel)
 
 
-@pytest.mark.parametrize("tile,opaque", [((16, 16), 0), ((8, 32), 0),
-                                         ((32, 32), 0), ((32, 32), 600),
-                                         ((16, 16), 600)])
-def test_tile_composite_kernels_match_plain(cuda, tile, opaque):
-    """K3 and K3ᵇ vs their plain versions on the same params_tiles, counts
+@pytest.mark.parametrize("tile,opaque,heavy", [
+    ((16, 16), 0, False), ((8, 32), 0, False), ((32, 32), 0, False),
+    ((32, 32), 600, False), ((16, 16), 600, False), ((32, 32), 0, True),
+    ((32, 32), 600, True)])
+def test_tile_composite_kernels_match_plain(cuda, tile, opaque, heavy):
+    """K3 (and the state it writes when asked) and K3ᵇ fed that state vs
+    their plain versions (K3ᵇ's replay) on the same params_tiles, counts
     and pf, over several 128-slot chunks, with every seventh tile's count
     set to 0 (an empty tile whose rows stay); with ``opaque``, tiles stop
     early at T <= 1e-4. Kernel and plain version take power, alpha test
     and clamp from the same f32 roundings: what is left is the order of
     the f32 sums and an early-out flipping at its threshold. Forward 1e-3
-    absolute (as K2), backward 1e-4 of each row's scale (as K2ᵇ)."""
+    absolute (as K2), backward 1e-4 of each row's scale (as K2ᵇ). With
+    ``heavy``, one tile's list is full (K = 1,024) beside light ones."""
     th, tw = tile
     rng = np.random.default_rng(5)
-    g = _scene(3000, rng, opaque)
-    S = 128
+    g = _heavy_scene(rng, opaque) if heavy else _scene(3000, rng, opaque)
+    S, K = 128, (1024 if heavy else 512)
     view = camera.build_camera_inputs(camera.orbit_camera(10, 30, 1.5)[None],
                                       FOVY, 0.5, 2.5)["cam_view"][0]
     with torch.no_grad():
         params, counts, pf = tt._prepare_view(
             torch.as_tensor(g, device=cuda),
-            torch.as_tensor(view, device=cuda), S, TAN, 1.0, th, tw, 512)
+            torch.as_tensor(view, device=cuda), S, TAN, 1.0, th, tw, K)
         counts[::7] = 0
         f0, b0 = tt.tile_composite_fwd.launches, tt.tile_composite_bwd.launches
-        fo = tt.tile_composite_fwd(params, counts, pf)
-        ref = tt.tile_composite_reference(params, counts, pf)
+        fo, state = tt.tile_composite_fwd(params, counts, pf,
+                                          return_state=True)
+        ref, ref_state = tt.tile_composite_reference(params, counts, pf,
+                                                     return_state=True)
         go = torch.as_tensor(rng.normal(0, 1, fo.shape), dtype=torch.float32,
                              device=cuda)
-        ours = tt.tile_composite_bwd(params, counts, pf, fo, go)
+        ours = tt.tile_composite_bwd(params, counts, pf, fo, go, state)
         dref = tt.tile_composite_bwd_reference(params, counts, pf, fo, go)
         work = tt._composite_plain(params, counts, pf)[1]
     torch.cuda.synchronize()
     assert (tt.tile_composite_fwd.launches,
             tt.tile_composite_bwd.launches) == (f0 + 1, b0 + 1)
-    assert int(counts.max()) > 128
+    # K3's chunk-boundary state against the plain version's (as the
+    # output: the early-out flipping at its threshold).
+    assert state.shape == (params.shape[0], K // 128, 5, pf.shape[0])
+    assert (state - ref_state).abs().max().item() <= 1e-3
+    assert int(counts.max()) == K if heavy else int(counts.max()) > 128
     if opaque:  # some tile stopped before the end of its list
         assert bool((work * 128 < counts).any())
     assert (fo - ref).abs().max().item() <= 1e-3
     assert torch.all(fo[..., 5:] == 0) and torch.all(fo[::7, :, 4] == 1)
     _rows_first_close(ours, dref)
-    skipped = (torch.arange(512, device=cuda)[None, :] // 128
+    skipped = (torch.arange(K, device=cuda)[None, :] // 128
                >= work[:, None])                              # [T, K]
     assert torch.all(ours.transpose(1, 2)[skipped] == 0)
+    # Slots past a tile's count keep the zeros they were handed.
+    past = torch.arange(K, device=cuda)[None, :] >= counts[:, None]
+    assert torch.all(ours.transpose(1, 2)[past] == 0)
     assert torch.all(ours[:, [7, 11, 12, 13, 14, 15]] == 0)
+
+
+def _k3b_inputs(cuda, rng):
+    view = camera.build_camera_inputs(camera.orbit_camera(10, 30, 1.5)[None],
+                                      FOVY, 0.5, 2.5)["cam_view"][0]
+    with torch.no_grad():
+        params, counts, pf = tt._prepare_view(
+            torch.as_tensor(_heavy_scene(rng, 600), device=cuda),
+            torch.as_tensor(view, device=cuda), 128, TAN, 1.0, 32, 32, 1024)
+        fo, state = tt.tile_composite_fwd(params, counts, pf,
+                                          return_state=True)
+    go = torch.as_tensor(rng.normal(0, 1, fo.shape), dtype=torch.float32,
+                         device=cuda)
+    return params, counts, pf, fo, go, state
+
+
+def test_tile_composite_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two K3ᵇ runs on the same inputs give the same bits."""
+    params, counts, pf, fo, go, state = _k3b_inputs(
+        cuda, np.random.default_rng(9))
+    with torch.no_grad():
+        first = tt.tile_composite_bwd(params, counts, pf, fo, go, state)
+        second = tt.tile_composite_bwd(params, counts, pf, fo, go, state)
+    assert torch.equal(first, second)
+
+
+def test_tile_composite_bwd_kernel_requires_the_state(cuda):
+    """On the card K3ᵇ starts from K3's state: without it, or with a state
+    of the wrong shape, it raises (no fallback to a replay)."""
+    params, counts, pf, fo, go, state = _k3b_inputs(
+        cuda, np.random.default_rng(2))
+    with pytest.raises(ValueError):
+        tt.tile_composite_bwd(params, counts, pf, fo, go)
+    with pytest.raises(ValueError):
+        tt.tile_composite_bwd(params, counts, pf, fo, go,
+                              state[:, :, :4].contiguous())
 
 
 def test_render_tiled_grad_launches_both_kernels(cuda):

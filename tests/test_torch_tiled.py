@@ -175,19 +175,107 @@ def test_tile_composite_reference_matches_jax_kernels(S, th, tw, K):
 
     go = np.random.default_rng(7).normal(0, 1, fo.shape).astype(np.float32)
     ref = np.asarray(jt._run_bwd(jp, jc, jpf, jfo, jnp.asarray(go), True))
-    ours = tt.tile_composite_bwd(
-        params, counts, pf, torch.as_tensor(np.array(jfo)),
-        torch.as_tensor(go)).numpy()
-    assert ours.shape == ref.shape
-    for r in range(16):
-        np.testing.assert_allclose(ours[:, r], ref[:, r], rtol=0,
-                                   atol=1e-4 * np.abs(ref[:, r]).max(),
-                                   err_msg=f"row {r}")
-    # Chunks the forward skipped, and the rows with no gradient, are zero.
-    chunk_of = np.arange(K) // 128
-    skipped = chunk_of[None, :] >= work.numpy()[:, None]   # [T, K]
-    assert skipped.any() and np.all(ours.transpose(0, 2, 1)[skipped] == 0.0)
-    assert np.all(ours[:, [7, 11, 12, 13, 14, 15]] == 0.0)
+    _, state = tt.tile_composite_reference(params, counts, pf,
+                                           return_state=True)
+    # The replay, and each chunk on its own from K3's stored state (the
+    # kernel's schedule).
+    for st in (None, state):
+        ours = tt.tile_composite_bwd(
+            params, counts, pf, torch.as_tensor(np.array(jfo)),
+            torch.as_tensor(go), st).numpy()
+        assert ours.shape == ref.shape
+        for r in range(16):
+            np.testing.assert_allclose(ours[:, r], ref[:, r], rtol=0,
+                                       atol=1e-4 * np.abs(ref[:, r]).max(),
+                                       err_msg=f"row {r}")
+        # Chunks the forward skipped, and the rows with no gradient, are
+        # zero.
+        chunk_of = np.arange(K) // 128
+        skipped = chunk_of[None, :] >= work.numpy()[:, None]   # [T, K]
+        assert skipped.any() and np.all(
+            ours.transpose(0, 2, 1)[skipped] == 0.0)
+        assert np.all(ours[:, [7, 11, 12, 13, 14, 15]] == 0.0)
+
+
+def _state_case():
+    """Faint splats packed at the centre, which fill a 16 x 16 tile's list
+    to K = 1,024 without stopping it, and opaque ones on one side, which
+    stop other tiles after their first chunk (64², 16 x 16 tiles)."""
+    rng = np.random.default_rng(21)
+    g = layered_scene()
+    n = 2400
+    g = np.concatenate([g, np.zeros((n, 14), np.float32)])
+    new = g[-n:]
+    new[:, 0:3] = rng.normal(0, 0.05, (n, 3))
+    new[:, 3] = rng.uniform(0.005, 0.02, n)
+    new[:, 4:7] = rng.uniform(0.01, 0.04, (n, 3))
+    q = rng.normal(0, 1, (n, 4))
+    new[:, 7:11] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    new[:, 11:14] = rng.uniform(0, 1, (n, 3))
+    new[:300, 0:3] = rng.normal(0, 0.3, (300, 3))
+    new[:300, 0] = rng.uniform(0.15, 0.6, 300)
+    new[:300, 3] = 1.0
+    new[:300, 4:7] = 0.15
+    params, counts, pf = tt._prepare_view(
+        torch.as_tensor(g), torch.as_tensor(view_of()), 64, TAN, 1.0, 16, 16,
+        1024)
+    params = params.detach()
+    chunks = tt.tile_composite_work(params, counts, pf)["tile_chunks"]
+    assert int(counts.max()) == 1024 and int(chunks.max()) == 8
+    assert bool((chunks * 128 < counts.long()).any())       # early-out
+    return params, counts, pf, chunks
+
+
+def test_tile_composite_reference_state_is_the_running_state():
+    """The plain K3's state: at each 128-slot boundary c, T and the sums
+    equal the output of the forward stopped there (counts capped at
+    128 c); and a tile's sums at its last composited chunk's boundary,
+    carried through that chunk alone, give the output."""
+    params, counts, pf, chunks = _state_case()
+    out, state = tt.tile_composite_reference(params, counts, pf,
+                                             return_state=True)
+    T, NC = state.shape[:2]
+    assert state.shape == (T, 1024 // 128, 5, pf.shape[0])
+    for c in range(NC):
+        stopped = tt.tile_composite_reference(
+            params, torch.clamp(counts, max=128 * c), pf)
+        rows = stopped[..., [4, 0, 1, 2, 3]].transpose(1, 2)
+        torch.testing.assert_close(state[:, c], rows, rtol=1e-5, atol=1e-6)
+    last = torch.clamp(chunks - 1, min=0)                          # [T]
+    slot = torch.arange(params.shape[2])
+    rest = torch.where((slot[None, :] < 128 * last[:, None])[:, None, :],
+                       torch.zeros_like(params), params)
+    tail = tt.tile_composite_reference(
+        rest, torch.minimum(counts.long(), 128 * (last + 1)).int(), pf)
+    st = state[torch.arange(T), last].transpose(1, 2)             # [T,P,5]
+    carried = torch.cat([st[..., 1:5] + st[..., 0:1] * tail[..., 0:4],
+                         st[..., 0:1] * tail[..., 4:5]], dim=2)
+    torch.testing.assert_close(carried, out[..., 0:5], rtol=1e-5, atol=1e-6)
+
+
+def test_tile_composite_bwd_reference_state_path_matches_replay():
+    """The plain K3ᵇ chunk by chunk from K3's state (last chunk first, so
+    none can lean on another) against its replay, on a scene with a full
+    tile and tiles that stop early: in f64 1e-9 of each row's scale (one
+    function on two schedules); in f32, as the kernel is held, 1e-4."""
+    params, counts, pf, chunks = _state_case()
+    go = np.random.default_rng(8).normal(0, 1, (params.shape[0],
+                                                pf.shape[0], 8))
+    for dtype, rel in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        p = params.to(dtype)
+        g = torch.as_tensor(go, dtype=dtype)
+        fo, state = tt.tile_composite_reference(p, counts, pf,
+                                                return_state=True)
+        replay = tt.tile_composite_bwd_reference(p, counts, pf, fo, g)
+        chunked = tt.tile_composite_bwd_reference(p, counts, pf, fo, g,
+                                                  state)
+        for r in range(16):
+            scale = float(replay[:, r].abs().max())
+            torch.testing.assert_close(chunked[:, r], replay[:, r], rtol=0,
+                                       atol=rel * scale)
+        skipped = (torch.arange(p.shape[2])[None, :] // 128
+                   >= chunks[:, None])
+        assert torch.all(chunked.transpose(1, 2)[skipped] == 0)
 
 
 def test_tile_composite_bwd_reference_is_autograd_of_plain_forward():
@@ -207,10 +295,14 @@ def test_tile_composite_bwd_reference_is_autograd_of_plain_forward():
         torch.testing.assert_close(
             ours[:, r], p.grad[:, r], rtol=0,
             atol=1e-4 * float(p.grad[:, r].abs().max()))
-    # tile_composite routes autograd to the analytic VJP.
+    # tile_composite routes autograd to the analytic VJP, which starts each
+    # chunk from the forward's saved chunk-boundary state.
     p2 = params.clone().requires_grad_()
     (tt.tile_composite(p2, counts, pf) * go).sum().backward()
-    assert torch.equal(p2.grad, ours)
+    _, state = tt.tile_composite_reference(params, counts, pf,
+                                           return_state=True)
+    assert torch.equal(p2.grad, tt.tile_composite_bwd_reference(
+        params, counts, pf, fo.detach(), go, state))
 
 
 @pytest.mark.parametrize("S,th,tw,K", TILINGS)
