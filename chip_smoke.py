@@ -10,7 +10,8 @@ the compositors' shuffles and shared loads in their SASS), holds each
 against its plain PyTorch version at the shapes its path gives it (K2ᵇ
 and K3ᵇ fed the chunk-boundary state their forward writes, and run twice
 for the same bits), times both, and drives the port's three paths, each
-with the launch counts set to 0 just before it and read just after:
+with the launch counts set to 0 just before it and read just after (and
+checked against the counts each path must give):
 
 - inference: LGM ``big`` at full width with seeded weights, forward ->
   .ply -> 180-frame orbit at 512² (kernels K1, K2);
@@ -23,7 +24,9 @@ with the launch counts set to 0 just before it and read just after:
   warm steps, the supervision views through the v1 tiled rasterizer (K1,
   K1ᵇ, K3, K3ᵇ; K2 for the batches' ground-truth renders), then K3 and
   K3ᵇ held against their plain versions on that step's own inputs, and
-  the backend's image held against the oracle and flatsort.
+  the backend's image held against the oracle and flatsort;
+- the attention gate: the ``nano`` preset (head dim 6) trained one step
+  in fp32 and in bf16, every site on the dense route, losses finite.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
@@ -66,15 +69,16 @@ K1_REL_TOL = 2.0 ** -7
 # and sums taken in other orders (and ex2.approx in the kernel): 1e-5 of
 # max(1, the largest |L|).
 K1_LSE_REL_TOL = 1e-5
-# K1, K1ᵇ, SDPA, K2ᵇ and K3ᵇ are timed over this many calls back to back
-# (see cuda_ms): their device time, which the host's time to enqueue one
-# call (longer than the kernels' at S = 256) would otherwise hide.
+# Every kernel is timed over this many calls back to back (see cuda_ms):
+# its device time, which the host's time to enqueue one call (longer than
+# the kernels' at S = 256) would otherwise hide; one call beside it.
 K1_LAUNCHES = 10
-# K2ᵇ's and K3ᵇ's times a bench view (ms) in their first design (one
-# thread a pixel, one block a tile, 50 shuffles a warp and slot), measured
-# by this script on NVIDIA H100 80GB HBM3 at 700 W over four runs, one
-# call a sample: printed beside the new times.
-PREVIOUS_MS = {"k2_bwd": (1.145, 1.227), "k3_bwd": (0.974, 1.030)}
+# The compositors' times a bench view (ms) in their first design (one
+# thread a pixel, one block a tile), measured by this script on NVIDIA
+# H100 80GB HBM3 at 700 W over several runs, one call a sample: printed
+# beside the new times.
+PREVIOUS_MS = {"k2": (0.268, 0.317), "k3": (0.274, 0.301),
+               "k2_bwd": (1.145, 1.227), "k3_bwd": (0.974, 1.030)}
 # Streaming multiprocessors of an H100 SXM: the unit of the tile-balance
 # figures (tile_balance).
 N_SM = 132
@@ -388,6 +392,18 @@ def bench_scene(dev):
     return g, view
 
 
+def launch_info(lib: str, variant, P: int, ptxas: dict) -> dict:
+    """K2's or K3's launch at tiles of P pixels: its cluster size, pixels a
+    thread, threads a block and the ptxas report (registers, stack, spills)
+    of that instantiation in library ``lib``."""
+    from lgm_tpu_torch.ops.gsplat.flatsort import launch_shape
+
+    cs, ppt = launch_shape(P, variant)
+    return dict(cluster=cs, pixels_per_thread=ppt,
+                threads=P // (cs * ppt),
+                ptxas=ptxas.get(lib, {}).get(f"{lib}_kernel<{cs},{ppt}>"))
+
+
 def ptxas_summary(log: str) -> dict:
     """Registers, stack frame and spill bytes of each kernel in a ``ptxas
     -v`` log, by kernel name and template arguments
@@ -432,6 +448,7 @@ def phase_build():
                          "tiled_bwd")}
     emit("build", seconds=seconds, kernels=sorted(libs), ptxas=ptxas,
          sass=sass)
+    return ptxas
 
 
 def phase_k1(dev):
@@ -489,7 +506,10 @@ def phase_k1(dev):
     return sums["forward"]
 
 
-def phase_k2(dev):
+def phase_k2(dev, ptxas):
+    """K2 on the bench scene (view 0, 512², 65,536 splats, with depth as
+    inference runs it) against its plain version, timed as device time
+    (K1_LAUNCHES calls) and one call."""
     import numpy as np
     import torch
 
@@ -510,15 +530,22 @@ def phase_k2(dev):
         err = float((out - ref).abs().max())
         if not err <= K2_ATOL:
             raise AssertionError(f"K2: max abs err {err} > {K2_ATOL}")
-        ms = cuda_ms(lambda: fs.composite_fwd(*args))
+        ms = cuda_ms(lambda: fs.composite_fwd(*args), launches=K1_LAUNCHES)
+        one_call_ms = cuda_ms(lambda: fs.composite_fwd(*args))
         plain_ms = cuda_ms(lambda: fs.composite_reference(*args), reps=5)
         work = fs.composite_work(*args)
     b_ms, b_by = k2_bound(work, params.shape[2], counts, S)
+    tile_slots = work["tile_slots"].float()
     emit("k2", tiles=int(params.shape[0]), splats=65536, image=S, dup=dup,
          slots_total=int(counts.sum()), live_pairs=work["pairs"],
-         used_pairs=work["used"], max_abs_err=err, tol=K2_ATOL,
-         kernel_ms=ms, plain_ms=plain_ms, bound_us=b_ms * 1e3,
-         bound_by=b_by)
+         used_pairs=work["used"], tile_slots_max=int(tile_slots.max()),
+         tile_slots_mean=float(tile_slots.mean()),
+         balance=tile_balance(work["tile_slots"], chunked=False),
+         **launch_info("composite_fwd", fs.K2_VARIANT, th * tw, ptxas),
+         max_abs_err=err, tol=K2_ATOL, kernel_ms=ms,
+         kernel_one_call_ms=one_call_ms,
+         was_kernel_one_call_ms=PREVIOUS_MS["k2"], plain_ms=plain_ms,
+         bound_us=b_ms * 1e3, bound_by=b_by)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
@@ -633,7 +660,7 @@ def phase_k2_bwd(dev):
                 bound_by=b_by, library_ms=None)
 
 
-def phase_k3(dev):
+def phase_k3(dev, ptxas):
     """K3 on the bench scene (view 0, 512², 65,536 splats, 32x32 tiles,
     K = 1024) against its plain version. Returns the kernel's row and the
     composite's inputs and output for ``phase_k3_bwd``."""
@@ -650,7 +677,9 @@ def phase_k3(dev):
     with torch.inference_mode():
         args = tiled._prepare_view(g, view, S, tan, 1.0, th, tw, K)
         fo, err = check_k3(*args, "bench")
-        ms = cuda_ms(lambda: tiled.tile_composite_fwd(*args))
+        ms = cuda_ms(lambda: tiled.tile_composite_fwd(*args),
+                     launches=K1_LAUNCHES)
+        one_call_ms = cuda_ms(lambda: tiled.tile_composite_fwd(*args))
         plain_ms = cuda_ms(lambda: tiled.tile_composite_reference(*args),
                            reps=5)
         work = tiled.tile_composite_work(*args)
@@ -659,9 +688,14 @@ def phase_k3(dev):
     emit("k3", tiles=int(params.shape[0]), splats=int(g.shape[0]), image=S,
          max_per_tile=K, slots_total=int(counts.sum()),
          live_chunks=work["chunks"], live_pairs=work["pairs"],
-         used_pairs=work["used"], max_abs_err=err, tol=K3_ATOL,
-         kernel_ms=ms, plain_ms=plain_ms, bound_us=b_ms * 1e3,
-         bound_by=b_by)
+         used_pairs=work["used"],
+         balance=tile_balance(torch.minimum(work["tile_chunks"] * 128,
+                                            counts.long()), chunked=False),
+         **launch_info("tiled_fwd", tiled.K3_VARIANT, pf.shape[0], ptxas),
+         max_abs_err=err, tol=K3_ATOL, kernel_ms=ms,
+         kernel_one_call_ms=one_call_ms,
+         was_kernel_one_call_ms=PREVIOUS_MS["k3"], plain_ms=plain_ms,
+         bound_us=b_ms * 1e3, bound_by=b_by)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), args, fo, work
 
@@ -757,10 +791,18 @@ def phase_main(dev):
 
     mha_fwd.launches = 0
     fs.composite_fwd.launches = 0
-    res = infer.process(opt, mv, os.path.join(work, "big"), device=str(dev),
-                        model=model)
+    with route_counts() as routes:
+        res = infer.process(opt, mv, os.path.join(work, "big"),
+                            device=str(dev), model=model)
     launches = {"mha_fwd": mha_fwd.launches,
                 "composite_fwd": fs.composite_fwd.launches}
+    # K1 at every attention site of the forward (bf16: the gate's kernel
+    # route at all of them), K2 once an orbit frame.
+    sites = sum(isinstance(m, unet_mod.MVAttention) for m in model.modules())
+    expected = {"mha_fwd": sites, "composite_fwd": 180}
+    if launches != expected or routes != {"kernel": sites, "dense": 0}:
+        raise AssertionError(f"launches {launches}, expected {expected}; "
+                             f"attention routes {routes}")
 
     gs, frames = res["gaussians"], res["frames"]
     n = 4 * opt.splat_size ** 2
@@ -773,8 +815,6 @@ def phase_main(dev):
     if not (os.path.getsize(res["ply"]) > 0
             and os.path.getsize(res["video"]) > 0):
         raise AssertionError("ply or video not written")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
 
     # Frame 0 against the same flatsort render with K2's plain version
     # (uint8 truncation of values that agree to ~1e-4: at most 1 step),
@@ -794,12 +834,20 @@ def phase_main(dev):
         # K2 on the main path's own frame-0 slots (random-weight splats
         # are large: tiles fill to MPT), timed beside its plain version.
         args = (params, counts, 32, 32, S // 32)
-        k2_ms = cuda_ms(lambda: fs.composite_fwd(*args))
+        k2_err = float((fs.composite_fwd(*args)
+                        - fs.composite_reference(*args)).abs().max())
+        if not k2_err <= K2_ATOL:
+            raise AssertionError(f"K2 frame 0: max abs err {k2_err}")
+        k2_ms = cuda_ms(lambda: fs.composite_fwd(*args), launches=K1_LAUNCHES)
+        k2_one_call_ms = cuda_ms(lambda: fs.composite_fwd(*args))
         k2_plain_ms = cuda_ms(lambda: fs.composite_reference(*args), reps=5)
         k2_work = fs.composite_work(*args)
     emit("k2_main_frame0", slots_total=int(counts.sum()),
          live_pairs=k2_work["pairs"], used_pairs=k2_work["used"],
-         kernel_ms=k2_ms, plain_ms=k2_plain_ms,
+         tile_slots_max=int(k2_work["tile_slots"].max()),
+         balance=tile_balance(k2_work["tile_slots"], chunked=False),
+         max_abs_err=k2_err, kernel_ms=k2_ms,
+         kernel_one_call_ms=k2_one_call_ms, plain_ms=k2_plain_ms,
          bound_us=k2_bound(k2_work, params.shape[2], counts, S)[0] * 1e3)
     frame_err = int(np.abs(frames[0].astype(int) - plain.astype(int)).max())
     if frame_err > 1:
@@ -823,7 +871,8 @@ def phase_main(dev):
         video=os.path.relpath(res["video"], ROOT), load_s=load_s,
         forward_s=res["forward_s"], forward_warm_s=sorted(warm)[1],
         orbit_s=res["orbit_s"], orbit_fps=180 / res["orbit_s"],
-        launches=launches, frame0_vs_plain_max=frame_err,
+        launches=launches, attention_routes=routes,
+        frame0_vs_plain_max=frame_err,
         frame0_vs_oracle_mean=oracle_err,
         gaussians_vs_plain_attention_max=fwd_err,
         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
@@ -856,6 +905,7 @@ def phase_train(dev):
 
     from lgm_tpu_torch import train
     from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.models.unet import MVAttention
     from lgm_tpu_torch.ops import mha as mha_mod
     from lgm_tpu_torch.ops.gsplat import flatsort as fs
 
@@ -905,8 +955,18 @@ def phase_train(dev):
                               staticmethod(spy_comp_back))))
     launches = {fn.__name__: fn.launches for fn in counters}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    # Per step: K1 and K1ᵇ at every attention site (16), K2 (with its
+    # state) and K2ᵇ on every supervision view (16); per batch: K2 on those
+    # views' ground truth at 512² and on the input views at 256² (24).
+    sites = sum(isinstance(m, MVAttention) for m in state.model.modules())
+    views = opt.batch_size * opt.num_views
+    inputs = (opt.batch_size * opt.num_input_views
+              if opt.input_size != opt.output_size else 0)
+    expected = {"mha_fwd": sites * N_STEPS, "mha_bwd": sites * N_STEPS,
+                "composite_fwd": (2 * views + inputs) * N_STEPS,
+                "composite_bwd": views * N_STEPS}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
     warm = median(step_s[1:])
     loop_warm = median([d + s for d, s in zip(data_s[1:], step_s[1:])])
     emit("train", preset="big", batch_size=2, params=n_params,
@@ -942,6 +1002,21 @@ def phase_train(dev):
 
         k2_ms = cuda_ms(k2b, launches=K1_LAUNCHES)
         k2_one_call_ms = cuda_ms(k2b)
+        # K2 as the step ran it on this view (writing its state), against
+        # its plain version.
+        out, k2f_state = fs.composite_fwd(params, counts, th, tw, tiles_x,
+                                          return_state=True)
+        if not (torch.equal(out, fo) and torch.equal(k2f_state, k2_state)):
+            raise AssertionError("K2 on the step's view differs from the "
+                                 "step's own output or state")
+        k2f_err = float((out - fs.composite_reference(
+            params, counts, th, tw, tiles_x)).abs().max())
+        if not k2f_err <= K2_ATOL:
+            raise AssertionError(f"K2 train step: max abs err {k2f_err}")
+        k2f_ms = cuda_ms(lambda: fs.composite_fwd(
+            params, counts, th, tw, tiles_x, return_state=True),
+            launches=K1_LAUNCHES)
+        del out, k2f_state
         work = fs.composite_work(params, counts, th, tw, tiles_x)
         # Each supervision view's tile balance (the order autograd ran
         # them in).
@@ -950,7 +1025,10 @@ def phase_train(dev):
     emit("train_kernels", k1_max_abs_err=k1f_err,
          k1_lse_max_abs_err=k1f_lse_err,
          k1_bwd_shape=list(q.shape), k1_bwd_max_abs_err=k1_err,
-         k1_bwd_tol=k1_tol, k1_bwd_ms=k1_ms,
+         k1_bwd_tol=k1_tol, k1_bwd_ms=k1_ms, k2_max_abs_err=k2f_err,
+         k2_with_state_ms=k2f_ms,
+         k2_bound_us=k2_bound(work, params.shape[2], counts,
+                              tw * tiles_x)[0] * 1e3,
          k2_bwd_slots_total=int(counts.sum()), k2_bwd_live_pairs=work["pairs"],
          k2_bwd_used_pairs=work["used"], k2_bwd_max_abs_err=k2_err,
          k2_bwd_max_row_rel_err=k2_rel, k2_bwd_bitwise_repeat=True,
@@ -1090,8 +1168,14 @@ def phase_train_v1(dev):
     # above: the counts were read already).
     params, counts, pf, fo, k3_state, go = captured["k3"]
     with torch.no_grad():
-        _, k3_err = check_k3(params, counts, pf, "train step")
-        k3_ms = cuda_ms(lambda: tiled.tile_composite_fwd(params, counts, pf))
+        k3_out, k3_err = check_k3(params, counts, pf, "train step")
+        if not torch.equal(k3_out, fo):
+            raise AssertionError("K3 on the step's view differs from the "
+                                 "step's own output")
+        k3_ms = cuda_ms(lambda: tiled.tile_composite_fwd(params, counts, pf),
+                        launches=K1_LAUNCHES)
+        k3_one_call_ms = cuda_ms(lambda: tiled.tile_composite_fwd(
+            params, counts, pf))
         k3b_err, k3b_rel = check_k3b(params, counts, pf, fo, go, k3_state,
                                      "train step")
 
@@ -1113,6 +1197,7 @@ def phase_train_v1(dev):
     emit("train_v1_kernels", slots_total=int(counts.sum()),
          live_chunks=work["chunks"], live_pairs=work["pairs"],
          used_pairs=work["used"], k3_max_abs_err=k3_err, k3_ms=k3_ms,
+         k3_one_call_ms=k3_one_call_ms,
          k3_bound_us=k3_bound(work, T, P)[0] * 1e3,
          k3_bwd_max_abs_err=k3b_err, k3_bwd_max_row_rel_err=k3b_rel,
          k3_bwd_bitwise_repeat=True, k3_bwd_ms=k3b_ms,
@@ -1177,6 +1262,66 @@ def phase_v1_image(dev):
         raise AssertionError(f"pallas_v1 vs the oracle: mean abs {mean}")
 
 
+def route_counts():
+    """A context in which the attention gate's two routes are counted:
+    yields {"kernel": calls of mha, "dense": calls of dense_attention},
+    filled in as the model runs."""
+    import contextlib
+    from unittest import mock
+
+    import lgm_tpu_torch.models.unet as unet_mod
+
+    @contextlib.contextmanager
+    def counting():
+        counts = {"kernel": 0, "dense": 0}
+
+        def spy(route, fn):
+            def call(*args):
+                counts[route] += 1
+                return fn(*args)
+            return call
+
+        with mock.patch.object(unet_mod, "mha", spy("kernel", unet_mod.mha)), \
+                mock.patch.object(unet_mod, "dense_attention",
+                                  spy("dense", unet_mod.dense_attention)):
+            yield counts
+
+    return counting()
+
+
+def phase_nano(dev):
+    """The attention gate on the card: the ``nano`` preset (head dim 96/16
+    = 6, which K1 does not take) trained one step in fp32 and in bf16
+    through ``train.create_state``/``train_step`` on a synthetic batch;
+    every attention call takes the dense route, and the loss is finite."""
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import train
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.data.synthetic import make_batch
+    from lgm_tpu_torch.models.unet import MVAttention
+
+    out = {}
+    for precision in ("fp32", "bf16"):
+        opt = CONFIGS["nano"].replace(mixed_precision=precision)
+        state = train.create_state(opt, dev)
+        batch = make_batch(np.random.default_rng(1), opt, device=dev)
+        data = train._batch_data(batch)
+        with route_counts() as routes:
+            m = train.train_step(state, data, torch.ones(3, device=dev))
+        torch.cuda.synchronize()
+        loss = float(m["loss"])
+        sites = sum(isinstance(x, MVAttention) for x in state.model.modules())
+        if not (np.isfinite(loss) and routes["kernel"] == 0
+                and routes["dense"] >= sites > 0):
+            raise AssertionError(f"nano {precision}: loss {loss}, attention "
+                                 f"routes {routes} over {sites} sites")
+        out[precision] = dict(loss=loss, gnorm=float(m["gnorm"]),
+                              attention_sites=sites, attention_routes=routes)
+    emit("nano_precisions", **out)
+
+
 def median(xs):
     """The middle value (the upper one of an even count)."""
     return sorted(xs)[len(xs) // 2]
@@ -1232,12 +1377,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    phase_build()
+    ptxas = phase_build()
     k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
+    k2 = phase_k2(dev, ptxas)
     k1b = phase_k1_bwd(dev)
     k2b = phase_k2_bwd(dev)
-    k3, k3_args, k3_out, k3_work = phase_k3(dev)
+    k3, k3_args, k3_out, k3_work = phase_k3(dev, ptxas)
     k3b = phase_k3_bwd(dev, k3_args, k3_out, k3_work)
     del k3_args, k3_out
     infer_launches, model, mv, gaussians = phase_main(dev)
@@ -1249,6 +1394,7 @@ def main() -> int:
     v1_launches = phase_train_v1(dev)
     torch.cuda.empty_cache()
     phase_v1_image(dev)
+    phase_nano(dev)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -134,7 +134,8 @@ def load_model(opt: Options, resume: Optional[str] = None,
                device: str = "cuda") -> LGM:
     """The LGM in eval mode on ``device``, in the preset's compute dtype
     (``mixed_precision``: bf16 or fp32). Weights come from ``resume`` (a
-    reference ``.safetensors``/``.pt`` state dict) or, without one, from
+    reference ``.safetensors``/``.pt`` state dict, or a ``ckpt_N`` that
+    ``lgm_tpu_torch.train`` wrote) or, without one, from
     PyTorch's default initialization under seed 0 (the released
     checkpoint is not in the repository)."""
     dev = resolve_device(device)
@@ -197,7 +198,8 @@ def main(argv=None):
     parser.add_argument("config", nargs="?", default="big",
                         choices=sorted(CONFIGS))
     parser.add_argument("--resume", type=str, default=None,
-                        help="reference .safetensors/.pt state dict")
+                        help="reference .safetensors/.pt state dict, or a "
+                        "ckpt_N of lgm_tpu_torch.train")
     parser.add_argument("--workspace", type=str, default="./workspace")
     parser.add_argument("--mv-images", nargs=4, required=True,
                         help="four multi-view images at az 0/90/180/270")

@@ -18,8 +18,10 @@ qkv has no bias and proj has one; MVAttention attends over the V views
 passed in, not a hard-coded 4.
 
 Training: gradients reach the f32 parameters through the casts to the
-compute dtype; attention goes through ``mha``, whose backward is kernel
-K1ᵇ. ``remat=True`` recomputes each down/mid/up block in the backward
+compute dtype; attention goes through ``attention``, the counterpart of
+``lgm_tpu``'s ``_attention`` gate: ``mha`` (kernels K1 and K1ᵇ on the
+card) where K1 takes the input, dense plain PyTorch elsewhere (f32
+compute, and the ``nano`` preset's head dim of 6). ``remat=True`` recomputes each down/mid/up block in the backward
 (``torch.utils.checkpoint``), the counterpart of ``unet_remat``
 (``lgm_tpu/models/unet.py``): it changes memory, never the numbers.
 """
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from lgm_tpu_torch.ops.mha import mha
+from lgm_tpu_torch.ops.mha import kernel_takes, mha
 
 
 def use_full_float32() -> None:
@@ -67,6 +69,31 @@ def _linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
     return F.linear(x.to(dtype), m.weight.to(dtype), bias)
 
 
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Exact softmax attention over [BH, S, D] in plain PyTorch, the
+    counterpart of ``jax.nn.dot_product_attention``'s XLA path: logits
+    q·kᵀ in f32, scaled; softmax in f32; the probabilities cast to the
+    input dtype; P·V in it. Its gradient is autograd's."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """Self-attention over [BH, S, D]: ``mha`` (K1, and K1ᵇ in the
+    backward) where the kernels take this dtype and shape (``kernel_takes``:
+    bf16, D in (32, 64), S % 128 == 0, scale > 0), else
+    ``dense_attention``, as ``lgm_tpu/models/unet.py::_attention`` keeps
+    its kernel behind a gate and runs ``jax.nn.dot_product_attention``
+    elsewhere. The choice reads dtype and shape only, never the device, so
+    the CPU takes the card's route."""
+    if kernel_takes(q.dtype, q.shape[-2], q.shape[-1], scale):
+        return mha(q, k, v, scale)
+    return dense_attention(q, k, v, scale)
+
+
 class _Attention(nn.Module):
     """Holds the reference's ``attn.qkv`` / ``attn.proj`` parameters."""
 
@@ -78,8 +105,9 @@ class _Attention(nn.Module):
 
 class MVAttention(nn.Module):
     """Cross-view self-attention: [B*V, C, H, W] -> attention over all
-    V*H*W tokens of a scene (ref: core/unet.py:11-49), through ``mha``
-    (kernels K1 and K1ᵇ on the card)."""
+    V*H*W tokens of a scene (ref: core/unet.py:11-49), through
+    ``attention`` (kernels K1 and K1ᵇ on the card where they take the
+    input)."""
 
     def __init__(self, channels: int, num_heads: int = 16,
                  skip_scale: float = 1.0, dtype=torch.bfloat16):
@@ -104,7 +132,7 @@ class MVAttention(nn.Module):
                 B * nh, S, hd).contiguous()
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-        o = mha(q, k, v, hd ** -0.5)
+        o = attention(q, k, v, hd ** -0.5)
         o = o.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, C)
         o = _linear(self.attn.proj, o, self.dtype)
         o = o.reshape(BV, H, W, C).permute(0, 3, 1, 2)

@@ -38,6 +38,11 @@
 //   C applied per slot: the same numbers as the per-pixel chain, without
 //   a pixel-frame moment's cancellation; and the division in dalpha is
 //   __fdividef (2 ulp; its divisor is in [0.01, 1]).
+// - A pair's alpha and the transmittance behind it are composite_common.cuh's
+//   pair_of and attenuate, which K2 calls too, on slots staged in K2's form
+//   (tile-local centre, pre-scaled conic): the replay takes K2's alpha
+//   decisions from the same bits. The write-out reads the slot's A, B, C
+//   and op from params.
 // - The replay does not branch on a pixel's alpha test: the four pixels'
 //   chains interleave, and an unused pair adds zeros. About half the
 //   bench view's visited pairs are used; there this measured 14-16% faster
@@ -57,21 +62,15 @@
 //   sums for the whole chunk in shared memory, then one barrier and a
 //   fixed-order sum over the warps. Deterministic, no atomics.
 
-#include <cuda_runtime.h>
-#include <math.h>
-
+#include "composite_common.cuh"
 #include "composite_reduce.cuh"
 
 namespace {
 
+using namespace composite;
 using namespace composite_reduce;
 
-constexpr int kChunk = 128;   // slots per chunk (G_CHUNK)
-constexpr int kStride = 12;   // floats per staged slot: R values, zero pad
 constexpr int kMaxPix = 1024;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
 
 template <int PPT>
 __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
@@ -83,8 +82,8 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
                          float* __restrict__ dparams, int mpt, int R,
                          int tile_h, int tile_w, int tiles_x) {
   extern __shared__ __align__(16) float smem[];
-  float* slots = smem;                   // [kChunk][kStride]
-  float* red = smem + kChunk * kStride;  // [warp][kChunk][kVals]
+  float* slots = smem;                       // [kChunk][kSlotStride]
+  float* red = smem + kChunk * kSlotStride;  // [warp][kChunk][kVals]
   const int nc = mpt / kChunk;
   const int tile = blockIdx.x / nc;
   const int c0 = (blockIdx.x % nc) * kChunk;
@@ -136,37 +135,34 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
   }
   const int n = min(kChunk, count - c0);
   const int n_batched = (n + kBatch - 1) / kBatch * kBatch;
-  // Stage the batches' slots (rows past the count are the dead slots' zero
-  // rows), R values and a zero pad each.
+  // Stage the batches' slots as K2 does (composite_common.cuh: the
+  // tile-local centre, the pre-scaled conic; rows past the count are the
+  // dead slots' zero rows).
   const float* blk = params + ((size_t)tile * mpt + c0) * R;
-  for (int i = tid; i < n_batched * kStride; i += blockDim.x) {
-    const int j = i / kStride, r = i % kStride;
-    slots[i] = r < R ? blk[j * R + r] : 0.f;
-  }
-  __syncthreads();
-
   const float tox = (float)((tile % tiles_x) * tile_w);
   const float toy = (float)((tile / tiles_x) * tile_h);
-  const float4* s4 = reinterpret_cast<const float4*>(slots);
+  float4* s4 = reinterpret_cast<float4*>(slots);
+  for (int j = tid; j < n_batched; j += blockDim.x)
+    stage_slot(blk + j * R, R, tox, toy, s4 + 3 * j);
+  __syncthreads();
+
   // This thread's terms of slot j, summed over its pixels, in the order of
   // K2's arithmetic. The staged depth is 0 where R = 9, so sv and v[9] drop
   // it.
   auto slot_terms = [&](int j, float (&v)[kVals]) {
     const float4 a = s4[j * 3], b = s4[j * 3 + 1], c = s4[j * 3 + 2];
-    // a = (x̄, ȳ, A, B), b = (C, op, r, g), c = (b, z, 0, 0)
-    const float mx = a.x - tox, my = a.y - toy;
+    // a = (cx, cy, nA, nB), b = (nC, op, r, g), c = (b, z, 0, 0)
 #pragma unroll
     for (int k = 0; k < kVals; ++k) v[k] = 0.f;
 #pragma unroll
     for (int p = 0; p < PPT; ++p) {
-      const float dx = lx[p] - mx;
-      const float dy = ly[p] - my;
-      const float power = -0.5f * (a.z * dx * dx + b.x * dy * dy) - a.w * dx * dy;
-      const float araw = b.y * expf(power);
-      // No branch on the alpha test: an unused pair has alpha = 0, so it
-      // adds exact zeros and leaves T and the prefix as they are.
-      const bool use = power <= 0.f && araw >= kAlphaMin;
-      const float alpha = use ? fminf(araw, kAlphaMax) : 0.f;
+      const float dx = lx[p] - a.x;
+      const float dy = ly[p] - a.y;
+      // K2's alpha, from the same bits (composite_common.cuh). No branch
+      // on the alpha test: an unused pair has alpha = 0, so it adds exact
+      // zeros and leaves T and the prefix as they are.
+      const Pair q = pair_of(dx, dy, a.z, a.w, b.x, b.y);
+      const float alpha = q.alpha, araw = q.araw;
       float sv = g0[p] * b.z + g1[p] * b.w + g2[p] * c.x + g3[p];
       sv += g5[p] * c.y;
       const float w = alpha * T[p];
@@ -187,7 +183,7 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
       v[7] += g1[p] * w;
       v[8] += g2[p] * w;
       v[9] += g5[p] * w;
-      T[p] *= 1.f - alpha;
+      T[p] = attenuate(T[p], alpha);
     }
   };
   float* red_warp = red + warp * kChunk * kVals;
@@ -205,7 +201,7 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
     const int j = i / R, k = i % R;
     float acc = 0.f;
     if (j < n) {
-      const float* s = slots + j * kStride;
+      const float* s = blk + j * R;  // the slot's x̄, ȳ, A, B, C, op
       const int row = j * kVals;
       if (k < 2) {
         const float mx = warps_sum(red, nwarps, kChunk * kVals, row);
@@ -228,7 +224,7 @@ int launch(const float* params, const int* counts, const float* fo,
            int R, int tile_h, int tile_w, int tiles_x, cudaStream_t stream) {
   const int threads = tile_h * tile_w / PPT;
   const size_t smem =
-      (kChunk * kStride + (threads / 32) * kChunk * kVals) * sizeof(float);
+      (kChunk * kSlotStride + (threads / 32) * kChunk * kVals) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       composite_bwd_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

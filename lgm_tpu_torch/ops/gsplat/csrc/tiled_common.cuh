@@ -1,6 +1,6 @@
 // Shared by tiled_fwd.cu (K3) and tiled_bwd.cu (K3ᵇ): the constants, the
-// staging of one 128-slot chunk (row-major for K3, slot-major for K3ᵇ), and
-// the alpha of one (pixel, slot) pair.
+// staging of one 128-slot chunk slot-major (with plain loads for K3ᵇ, with
+// cp.async for K3), and the alpha of one (pixel, slot) pair.
 //
 // K3ᵇ replays K3, so both must take the same decisions (alpha test, 0.99
 // clamp, the tile's early-out vote) from the same bits. The power is
@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tile_cluster.cuh"
+
 namespace tiled {
 
 constexpr int kChunk = 128;  // slots per chunk (G_CHUNK)
@@ -30,17 +32,6 @@ constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 
-// Copies rows 0-6 and 8-10 of the chunk at slot c0 of one tile's [16, K]
-// block into rows[kStaged][kChunk] (row 8 lands at staged row 7, and so
-// on). Coalesced; the caller synchronizes.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ blk,
-                                            int K, int c0, float* rows) {
-  for (int i = threadIdx.x; i < kStaged * kChunk; i += blockDim.x) {
-    const int r = i / kChunk, j = i % kChunk;
-    rows[i] = blk[(size_t)(r < 7 ? r : r + 1) * K + c0 + j];
-  }
-}
-
 // Copies rows 0-6 and 8-10 of slots c0 .. c0 + n - 1 of one tile's [16, K]
 // block into slots[n][kSlotStride], slot-major (row 8 lands at 7, and so
 // on; 10 and 11 are zero), so that a thread reads a slot as three 16-byte
@@ -51,6 +42,19 @@ __device__ __forceinline__ void stage_slots(const float* __restrict__ blk,
     const int r = i / n, j = i % n;
     slots[j * kSlotStride + r] =
         r < kStaged ? blk[(size_t)(r < 7 ? r : r + 1) * K + c0 + j] : 0.f;
+  }
+}
+
+// stage_slots by cp.async, 4 bytes a value, for rows 0-6 and 8-10 only
+// (floats 10 and 11 of a slot are left as they are). The caller commits,
+// waits and synchronizes.
+__device__ __forceinline__ void stage_slots_async(const float* __restrict__ blk,
+                                                  int K, int c0, int n,
+                                                  float* slots) {
+  for (int i = threadIdx.x; i < kStaged * n; i += blockDim.x) {
+    const int r = i / n, j = i % n;
+    tile_cluster::cp_async4(slots + j * kSlotStride + r,
+                            blk + (size_t)(r < 7 ? r : r + 1) * K + c0 + j);
   }
 }
 
@@ -77,13 +81,35 @@ __device__ __forceinline__ Pair pair_of(const float (&f)[kFeat],
   return p;
 }
 
-// pair_of for slot j of a chunk staged row-major by stage_chunk.
-__device__ __forceinline__ Pair pair_alpha(const float (&f)[kFeat],
-                                           const float* rows, int j) {
-  float c[kFeat];
+// pair_of's two halves, for K3, which tests the power against a slot's
+// cull bound before the exp: the same operations in the same order, so the
+// same bits. (pair_of is not written as their composition: that compiled
+// K3ᵇ's chunk loop 38 instructions longer, and 2-4% slower.)
+__device__ __forceinline__ float power_of(const float (&f)[kFeat],
+                                          const float (&c)[kFeat]) {
+  float power = __fmul_rn(f[0], c[0]);
 #pragma unroll
-  for (int k = 0; k < kFeat; ++k) c[k] = rows[k * kChunk + j];
-  return pair_of(f, c, rows[6 * kChunk + j]);
+  for (int k = 1; k < kFeat; ++k) power = __fadd_rn(power, __fmul_rn(f[k], c[k]));
+  return power;
+}
+
+__device__ __forceinline__ Pair alpha_of(float power, float op) {
+  Pair p;
+  p.e = expf(power);
+  p.araw = __fmul_rn(op, p.e);
+  p.use = power <= 0.f && p.araw >= kAlphaMin;
+  p.alpha = p.use ? fminf(p.araw, kAlphaMax) : 0.f;
+  return p;
+}
+
+// The power below which a slot of opacity op cannot pass the alpha test
+// (op e^power >= 1/255): a pair with power < cull_bound(op) has alpha 0 and
+// leaves the pixel as it is, so a warp whose every pixel is below it may
+// skip the slot with the same bits (K3). The 1e-3 margin covers the
+// roundings of logf, expf and the product by far. Dead slots (op = 0)
+// give +inf (always below); op < 0 or NaN give NaN (never below).
+__device__ __forceinline__ float cull_bound(float op) {
+  return logf(kAlphaMin / op) - 1e-3f;
 }
 
 // The transmittance behind a used pair.

@@ -55,11 +55,12 @@ T_EPS = 1e-4
 
 _SIGNATURES = {
     "composite_fwd_f32": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
+
 _BWD_SIGNATURES = {
     "composite_bwd_f32": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -67,6 +68,33 @@ _BWD_SIGNATURES = {
         ctypes.c_int,
     ),
 }
+
+# K2's launch shape at 32 x 32 tiles, (cluster size, pixels a thread):
+# each tile is composited by a cluster of that many blocks, each thread
+# owning that many pixels. Chosen by measurement (PERF.md: every variant
+# of ``VARIANTS`` timed in one call by scripts/time_compositors.py):
+# the fastest on the orbit's heavy frame 0, 3-6% behind (2, 2) on the
+# bench view.
+K2_VARIANT = (4, 2)
+# Every (cluster, pixels a thread) the kernels are built for.
+VARIANTS = tuple((cs, ppt) for cs in (1, 2, 4) for ppt in (1, 2, 4))
+
+
+def launch_shape(P: int, variant: Tuple[int, int]) -> Tuple[int, int]:
+    """The (cluster, pixels a thread) K2 or K3 launches with for tiles of
+    ``P`` pixels (a multiple of 32): ``variant``, with pixels a thread and
+    then the cluster halved until each block is whole warps
+    (``P % (32 * cluster * ppt) == 0``). A choice by shape only."""
+    cs, ppt = variant
+    if (cs, ppt) not in VARIANTS:
+        raise ValueError(f"no kernel is built for (cluster, pixels a "
+                         f"thread) = {variant}; built: {VARIANTS}")
+    while P % (32 * cs * ppt):
+        if ppt > 1:
+            ppt //= 2
+        else:
+            cs //= 2
+    return cs, ppt
 
 
 class FlatBins(NamedTuple):
@@ -283,8 +311,7 @@ def _composite_plain(params, counts, tile_h, tile_w, tiles_x,
         blk = params[:, c0:c0 + G_CHUNK]                     # [T, G, R]
         dx = lx[None, None, :] - (blk[..., 0:1] - tox[:, :, None])
         dy = ly[None, None, :] - (blk[..., 1:2] - toy[:, :, None])
-        power = (-0.5 * (blk[..., 2:3] * dx * dx + blk[..., 4:5] * dy * dy)
-                 - blk[..., 3:4] * dx * dy)                   # [T, G, P]
+        power = _slot_power(blk, dx, dy)                      # [T, G, P]
         araw = blk[..., 5:6] * torch.exp(power)
         use = live[:, None, None] & (power <= 0.0) & (araw >= ALPHA_MIN)
         alpha = torch.where(use, torch.clamp(araw, max=ALPHA_MAX),
@@ -302,6 +329,16 @@ def _composite_plain(params, counts, tile_h, tile_w, tiles_x,
         Tr = Tr * cp[:, -1]
     acc[:, 4] = Tr
     return acc, visited, used, state
+
+
+def _slot_power(blk, dx, dy):
+    """The power of each (slot, pixel) pair: -0.5 (A dx² + C dy²) - B dx dy
+    taken as K2 and K2ᵇ take it (``csrc/composite_common.cuh``), one
+    rounding an operation, ((nA dx) dx + (nC dy) dy) + (nB dx) dy with the
+    conic pre-scaled (nA = -A/2, nB = -B, nC = -C/2; halving and negating
+    are exact)."""
+    nA, nB, nC = -0.5 * blk[..., 2:3], -blk[..., 3:4], -0.5 * blk[..., 4:5]
+    return nA * dx * dx + nC * dy * dy + nB * dx * dy
 
 
 def composite_reference(params, counts, tile_h, tile_w, tiles_x,
@@ -346,6 +383,10 @@ def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
     T, MPT, R = params.shape
     P = tile_h * tile_w
     _check_kernel_inputs("composite_fwd", params, counts, tile_h, tile_w)
+    if params.data_ptr() % 16:
+        raise ValueError("composite_fwd kernel copies params in 16-byte "
+                         "units: its data must be 16-byte aligned")
+    cluster, ppt = launch_shape(P, K2_VARIANT)
     out = torch.empty(T, 8, P, dtype=torch.float32, device=params.device)
     state = (torch.empty(T, MPT // G_CHUNK, 6, P, dtype=torch.float32,
                          device=params.device) if return_state else None)
@@ -353,7 +394,8 @@ def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
     err = lib.composite_fwd_f32(
         params.data_ptr(), counts.data_ptr(), out.data_ptr(),
         state.data_ptr() if return_state else None, T, MPT, R, tile_h,
-        tile_w, tiles_x, torch.cuda.current_stream(params.device).cuda_stream,
+        tile_w, tiles_x, cluster, ppt,
+        torch.cuda.current_stream(params.device).cuda_stream,
         params.device.index)
     _build.check(lib, err, "composite_fwd")
     composite_fwd.launches += 1
@@ -458,7 +500,7 @@ def _bwd_chunk(params, dparams, c0, live, Tr, pref, geo):
     op = blk[..., 5:6]
     dx = geo["lx"] - (blk[..., 0:1] - geo["tox"])                    # [T,G,P]
     dy = geo["ly"] - (blk[..., 1:2] - geo["toy"])
-    power = -0.5 * (A * dx * dx + C * dy * dy) - B * dx * dy
+    power = _slot_power(blk, dx, dy)
     araw = op * torch.exp(power)
     use = live[:, None, None] & (power <= 0.0) & (araw >= ALPHA_MIN)
     alpha = torch.where(use, torch.clamp(araw, max=ALPHA_MAX),

@@ -45,7 +45,8 @@ import torch
 
 from lgm_tpu_torch.ops import _build
 from lgm_tpu_torch.ops.gsplat.flatsort import (_GatherRows, _PermuteRows,
-                                                _tile_bboxes_xy, stack_views)
+                                                _tile_bboxes_xy, launch_shape,
+                                                stack_views)
 from lgm_tpu_torch.ops.gsplat.projection import (ALPHA_MAX, ALPHA_MIN,
                                                   project_gaussians)
 
@@ -56,10 +57,15 @@ G_CHUNK = 128
 T_EPS = 1e-4
 N_ROWS = 16
 STATE_ROWS = 5
+# K3's launch shape at 32 x 32 tiles, (cluster size, pixels a thread), as
+# flatsort.K2_VARIANT: chosen by measurement (PERF.md): within 2% of
+# the fastest on the heavy frame-0 view (as the training step's views),
+# 4-7% behind (2, 2) on the bench view.
+K3_VARIANT = (4, 2)
 
 _FWD_SIGNATURES = {
     "tiled_fwd_f32": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
@@ -253,7 +259,7 @@ def _check_inputs(what, params_tiles, counts, pf, named=()):
             or not pf.is_contiguous() or P > 1024 or P % 32):
         raise ValueError(
             f"{what}: pf must be a contiguous f32 [P, 8] tensor on {dev} "
-            f"with P a multiple of 32, at most 1024 (one thread a pixel); "
+            f"with P a multiple of 32, at most 1024; "
             f"got {pf.dtype} {tuple(pf.shape)} on {pf.device}")
     if (counts.dtype != torch.int32 or counts.shape != (T,)
             or counts.device != dev or not counts.is_contiguous()):
@@ -307,6 +313,7 @@ def tile_composite_fwd(params_tiles, counts, pf, return_state=False):
     _check_inputs("tile_composite_fwd", params_tiles, counts, pf)
     T, _, K = params_tiles.shape
     P = pf.shape[0]
+    cluster, ppt = launch_shape(P, K3_VARIANT)
     out = torch.empty(T, P, 8, dtype=torch.float32,
                       device=params_tiles.device)
     state = (torch.empty(T, K // G_CHUNK, STATE_ROWS, P, dtype=torch.float32,
@@ -316,6 +323,7 @@ def tile_composite_fwd(params_tiles, counts, pf, return_state=False):
     err = lib.tiled_fwd_f32(
         params_tiles.data_ptr(), counts.data_ptr(), pf.data_ptr(),
         out.data_ptr(), state.data_ptr() if return_state else None, T, K, P,
+        cluster, ppt,
         torch.cuda.current_stream(params_tiles.device).cuda_stream,
         params_tiles.device.index)
     _build.check(lib, err, "tiled_fwd")

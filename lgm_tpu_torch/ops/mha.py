@@ -120,6 +120,14 @@ def mha_bwd_reference(q, k, v, o, do, scale: float, lse):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def kernel_takes(dtype: torch.dtype, S: int, D: int, scale: float) -> bool:
+    """Whether K1 and K1ᵇ take attention of this dtype and shape: bf16, D
+    in (32, 64), S a multiple of 128 and scale > 0 (what the wrappers
+    check on a CUDA tensor)."""
+    return (dtype is torch.bfloat16 and D in (32, 64) and S % _TILE == 0
+            and scale > 0)
+
+
 def _check_kernel_inputs(what: str, ref: torch.Tensor, named,
                          scale: float, lse=None) -> None:
     shape, dev = ref.shape, ref.device

@@ -103,16 +103,23 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference-format state dict (``.safetensors`` or a torch
-    ``.pt``/``.pth``, optionally under a ``"model"`` key). LPIPS weights,
-    which reference checkpoints may carry, are dropped."""
+    """Read an LGM state dict: a reference-format one (``.safetensors`` or
+    a torch ``.pt``/``.pth``, optionally under a ``"model"`` key), or a
+    training checkpoint of ``lgm_tpu_torch.train`` (``save_checkpoint``'s
+    ``ckpt_N``: ``LGMWithLoss``'s state dict under ``"params"``, whose
+    ``lgm.*`` keys are LGM's and keep their names without the prefix; the
+    counterpart of ``lgm_tpu/infer.py``'s ``restored["params"]["lgm"]``).
+    LPIPS weights, which both may carry, are dropped."""
     if path.endswith(".safetensors"):
         from safetensors.torch import load_file
 
         sd = load_file(path)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "model" in sd:
+        if isinstance(sd, dict) and "params" in sd:
+            sd = {k[len("lgm."):]: v for k, v in sd["params"].items()
+                  if k.startswith("lgm.")}
+        elif isinstance(sd, dict) and "model" in sd:
             sd = sd["model"]
     return {k: v.float() for k, v in sd.items() if "lpips" not in k}
 

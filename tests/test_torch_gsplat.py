@@ -464,3 +464,21 @@ def test_composite_bwd_rejects_other_devices():
     counts = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         fs.composite_bwd(params, counts, params, params, 32, 32, 1)
+
+
+@pytest.mark.parametrize("P", [32, 64, 128, 256, 512, 1024])
+def test_launch_shape_gives_whole_warps(P):
+    """K2's and K3's launch shape for every tile size the wrappers accept
+    (a multiple of 32 pixels, at most 1,024): each built (cluster, pixels a
+    thread), reduced by shape alone, gives blocks of whole warps, no larger
+    than asked; at 32 x 32 tiles it is the variant asked for. A variant no
+    kernel is built for raises."""
+    for variant in fs.VARIANTS:
+        cs, ppt = fs.launch_shape(P, variant)
+        assert (cs, ppt) in fs.VARIANTS
+        assert cs <= variant[0] and ppt <= variant[1]
+        assert P % (32 * cs * ppt) == 0
+        if P == 1024:
+            assert (cs, ppt) == variant
+    with pytest.raises(ValueError):
+        fs.launch_shape(P, (8, 2))

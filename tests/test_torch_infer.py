@@ -107,3 +107,58 @@ def test_cuda_entry_points_raise_without_a_card():
         infer.process(opt, mv, "unused")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         infer.render_orbit_video(np.zeros((8, 14), np.float32), opt)
+
+
+def test_load_model_reads_a_training_checkpoint(tmp_path):
+    """A ckpt_N that train.save_checkpoint wrote (LGMWithLoss's state dict
+    under "params": lgm.* and lpips_loss.* keys) loads through
+    infer.load_model, as lgm_tpu's inference reads its trainer's
+    checkpoints, and gives the trained model's Gaussians bit for bit."""
+    from lgm_tpu_torch import train
+    from lgm_tpu_torch.data.synthetic import make_batch
+
+    opt = get_config("nano")
+    state = train.create_state(opt, "cpu")
+    batch = make_batch(np.random.default_rng(1), opt, batch_size=2,
+                       n_gaussians=32, device="cpu")
+    data = {k: v for k, v in batch.items() if k != "scenes"}
+    for _ in range(2):
+        train.train_step(state, data, torch.ones(3))
+    path = train.save_checkpoint(str(tmp_path), state, step=2)
+    assert any(k.startswith("lpips_loss.") for k in torch.load(
+        path, weights_only=True)["params"]) == (state.model.lpips_loss
+                                                is not None)
+    model = infer.load_model(opt, path, "cpu")
+    mv = np.random.default_rng(5).uniform(0, 1, (4, 32, 32, 3)).astype(
+        np.float32)
+    ours = infer.forward_gaussians(model, mv)
+    trained = infer.forward_gaussians(state.model.lgm.eval(), mv)
+    np.testing.assert_array_equal(ours, trained)
+    fresh = infer.forward_gaussians(infer.load_model(opt, device="cpu"), mv)
+    assert not np.array_equal(ours, fresh)
+
+
+@pytest.mark.parametrize("form", ["state_dict.pt", "model.pt",
+                                  "state_dict.safetensors"])
+def test_load_model_reads_reference_state_dicts(tmp_path, form):
+    """The reference forms still load: a plain state dict, one under a
+    "model" key (with an LPIPS key, which is dropped), a .safetensors."""
+    opt = get_config("nano")
+    src = infer.load_model(opt, device="cpu")
+    rng = np.random.default_rng(3)
+    sd = {k: v + torch.as_tensor(rng.normal(0, 0.01, tuple(v.shape)),
+                                 dtype=v.dtype)
+          for k, v in src.state_dict().items()}
+    path = str(tmp_path / form)
+    if form == "state_dict.safetensors":
+        from safetensors.torch import save_file
+
+        save_file(sd, path)
+    elif form == "model.pt":
+        torch.save({"model": {**sd, "lpips.net.0.weight": torch.zeros(1)}},
+                   path)
+    else:
+        torch.save(sd, path)
+    model = infer.load_model(opt, path, "cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k

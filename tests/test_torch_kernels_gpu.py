@@ -518,3 +518,293 @@ def test_tile_composite_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(NotImplementedError):
         tt.tile_composite_fwd(params.clone().requires_grad_(), counts, pf)
     assert torch.all(tt.tile_composite_fwd(params, counts, pf)[..., 4] == 1)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3 over thread-block clusters: every built (cluster size, pixels a
+# thread) against the plain version, against the others and against itself.
+# Each pixel's arithmetic is pinned (one rounding an operation) and the
+# early-out vote is tile-wide, so every variant must give the same bits.
+# ---------------------------------------------------------------------------
+
+
+def _bench_view(cuda):
+    """chip_smoke.py's bench scene: 65,536 splats from sample_scene(seed 0)
+    and view 0 of the 180-frame orbit, 512²."""
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.data.synthetic import sample_scene
+    from lgm_tpu_torch.infer import orbit_video_cameras
+
+    g = torch.as_tensor(sample_scene(np.random.default_rng(0), 65536),
+                        device=cuda)
+    view = torch.as_tensor(
+        orbit_video_cameras(CONFIGS["big"], 180)["cam_view"][0], device=cuda)
+    return g, view, 512
+
+
+def _scene_view(cuda, scene):
+    """(gaussians, view, image size) of a named test scene: ``bench``, or
+    ``heavy`` (one 32 x 32 tile full beside light ones) and ``early_out``
+    (the same with large opaque splats: tiles stop at T <= 1e-4 before
+    their count) at 128²."""
+    if scene == "bench":
+        return _bench_view(cuda)
+    rng = np.random.default_rng(5)
+    g = _heavy_scene(rng, 600 if scene == "early_out" else 0)
+    view = camera.build_camera_inputs(camera.orbit_camera(10, 30, 1.5)[None],
+                                      FOVY, 0.5, 2.5)["cam_view"][0]
+    return (torch.as_tensor(g, device=cuda), torch.as_tensor(view, device=cuda),
+            128)
+
+
+def _banded_slots(dev, R, tile=(32, 32)):
+    """K2's slots [4, 1024, R] for a 2 x 2 grid of tiles whose pixels
+    saturate at different chunks. In tile 0, chunk k (k < 4) holds 128
+    opaque splats over the k-th quarter of the tile's rows, which takes
+    their transmittance below 1e-4, and chunks 4-7 hold faint splats over
+    the whole tile; so the tile stops at boundary 4 (512 slots), while a
+    block owning only the first quarter would have stopped at boundary 1.
+    Tile 1 takes the bands in reverse order, tile 2 stops at its count
+    (300), and tile 3 holds only faint splats (all 1,024 slots). Returns
+    (params, counts, tiles_x)."""
+    th, tw = tile
+    rng = np.random.default_rng(11)
+    T, mpt, tiles_x = 4, 1024, 2
+    slots = np.zeros((T, mpt, 10), np.float32)
+    i = np.arange(128)
+    for t in range(T):
+        tox, toy = (t % tiles_x) * tw, (t // tiles_x) * th
+        for c in range(8):
+            s = slots[t, c * 128:(c + 1) * 128]
+            if c < 4 and t != 3:
+                band = 3 - c if t == 1 else c
+                x = (i % 16) * tw / 16
+                y = band * th / 4 + (i // 16) * th / 32
+                sigma, op = 3.0, 0.99
+            else:
+                x = rng.uniform(0, tw, 128)
+                y = rng.uniform(0, th, 128)
+                sigma, op = 4.0, 0.02
+            s[:, 0], s[:, 1] = tox + x, toy + y
+            s[:, 2] = s[:, 4] = 1.0 / (2 * sigma ** 2)
+            s[:, 3] = rng.uniform(-0.1, 0.1, 128) / (2 * sigma ** 2)
+            s[:, 5] = op
+            s[:, 6:9] = rng.uniform(0, 1, (128, 3))
+            s[:, 9] = rng.uniform(1, 3, 128)
+    counts = np.array([mpt, mpt, 300, mpt], np.int32)
+    slots[2, 300:] = 0.0
+    params = torch.as_tensor(slots[..., :R].copy(), device=dev)
+    return params, torch.as_tensor(counts, device=dev), tiles_x
+
+
+def _tiled_params(params, tile, tiles_x):
+    """K3's params_tiles [T, 16, K] with the splats of K2's slots, packed
+    as tiled._build_tile_params packs them."""
+    th, tw = tile
+    T = params.shape[0]
+    tid = torch.arange(T, device=params.device)
+    mx = params[..., 0] - ((tid % tiles_x) * tw).float()[:, None]
+    my = params[..., 1] - ((tid // tiles_x) * th).float()[:, None]
+    A, B, C, op = params[..., 2], params[..., 3], params[..., 4], params[..., 5]
+    zeros = torch.zeros_like(op)
+    return torch.stack([
+        -0.5 * A, -0.5 * C, -B, A * mx + B * my, C * my + B * mx,
+        -(0.5 * A * mx * mx + 0.5 * C * my * my + B * mx * my), op, zeros,
+        params[..., 6], params[..., 7], params[..., 8], torch.ones_like(op),
+        zeros, zeros, zeros, zeros], dim=1).contiguous()
+
+
+def _every_variant(mod, name, fwd, args, monkeypatch):
+    """K2 or K3 (``fwd``) with its state at every built (cluster, pixels a
+    thread), set through ``mod.name``; asserts that all give the same bits
+    and that a repeat does; returns them."""
+    first = None
+    for variant in fs.VARIANTS:
+        monkeypatch.setattr(mod, name, variant)
+        with torch.no_grad():
+            out, state = fwd(*args, return_state=True)
+            again = fwd(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(again, out), variant
+        if first is None:
+            first = out, state
+        else:
+            assert torch.equal(out, first[0]), variant
+            assert torch.equal(state, first[1]), variant
+    return first
+
+
+def _k2_every_variant(args, monkeypatch):
+    return _every_variant(fs, "K2_VARIANT", fs.composite_fwd, args,
+                          monkeypatch)
+
+
+def _k3_every_variant(args, monkeypatch):
+    return _every_variant(tt, "K3_VARIANT", tt.tile_composite_fwd, args,
+                          monkeypatch)
+
+
+def _transmittance_close(state, ref_state, rel=1e-3):
+    """The stored T row by row within ``rel`` of the plain T (relative: a
+    block that stopped on its own vote leaves T orders of magnitude
+    above the tile's)."""
+    err = ((state[:, :, 0] - ref_state[:, :, 0]).abs()
+           / ref_state[:, :, 0].clamp_min(1e-30)).max().item()
+    assert err <= rel, err
+
+
+@pytest.mark.parametrize("R", [9, 10])
+def test_composite_fwd_vote_is_tile_wide_in_every_variant(cuda, R,
+                                                          monkeypatch):
+    """K2 on a tile whose pixels saturate at different chunks (each
+    cluster block's share at its own chunk): every variant composites the
+    tile up to the tile's early-out, as the plain version does."""
+    params, counts, tiles_x = _banded_slots(cuda, R)
+    args = (params, counts, 32, 32, tiles_x)
+    with torch.no_grad():
+        ref, ref_state = fs.composite_reference(*args, return_state=True)
+        work = fs.composite_work(*args)
+    assert work["tile_slots"].tolist() == [512, 512, 300, 1024]
+    t1 = ref_state[0, 1, 0].reshape(32, 32)   # tile 0 after chunk 0
+    assert bool((t1[:8] <= 1e-4).all()) and bool((t1[16:] > 1e-4).all())
+    out, state = _k2_every_variant(args, monkeypatch)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert (state - ref_state).abs().max().item() <= 1e-3
+    _transmittance_close(state, ref_state)
+
+
+def test_tile_composite_fwd_vote_is_tile_wide_in_every_variant(cuda,
+                                                               monkeypatch):
+    """K3 on the same banded tiles (tiles._build_tile_params' packing):
+    every variant composites each tile up to the tile's early-out."""
+    params, counts, tiles_x = _banded_slots(cuda, 10)
+    args = (_tiled_params(params, (32, 32), tiles_x), counts,
+            tt._pixel_features(32, 32, cuda))
+    with torch.no_grad():
+        ref, ref_state = tt.tile_composite_reference(*args, return_state=True)
+        work = tt.tile_composite_work(*args)
+    assert work["tile_chunks"].tolist() == [4, 4, 3, 8]
+    t1 = ref_state[0, 1, 0].reshape(32, 32)
+    assert bool((t1[:8] <= 1e-4).all()) and bool((t1[16:] > 1e-4).all())
+    out, state = _k3_every_variant(args, monkeypatch)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert (state - ref_state).abs().max().item() <= 1e-3
+    _transmittance_close(state, ref_state)
+
+
+@pytest.mark.parametrize("scene", ["bench", "heavy", "early_out"])
+@pytest.mark.parametrize("R", [9, 10])
+def test_composite_fwd_variants_match_plain(cuda, scene, R, monkeypatch):
+    """K2 at every variant on the bench view (tiles at MPT = 1,024), a
+    128² view with one full tile, and one whose tiles stop early: output
+    and state against the plain version (1e-3, as K2_ATOL), and K2ᵇ fed
+    the state against its plain replay (1e-4 of each row's scale)."""
+    g, view, S = _scene_view(cuda, scene)
+    with torch.no_grad():
+        params, counts = fs._prepare_view(g, view, S, TAN, 1.0, 32, 32,
+                                          32 if scene == "bench" else 16,
+                                          1024, R == 10)
+        assert params.shape[2] == R and int(counts.max()) == 1024
+        args = (params, counts, 32, 32, S // 32)
+        ref, ref_state = fs.composite_reference(*args, return_state=True)
+        work = fs.composite_work(*args)
+    if scene == "early_out":
+        assert work["slots"] < int(counts.sum())
+    out, state = _k2_every_variant(args, monkeypatch)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert (state - ref_state).abs().max().item() <= 1e-3
+    go = torch.as_tensor(np.random.default_rng(3).normal(0, 1, out.shape),
+                         dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        ours = fs.composite_bwd(params, counts, out, go, 32, 32, S // 32,
+                                state=state)
+        dref = fs.composite_bwd_reference(params, counts, out, go, 32, 32,
+                                          S // 32)
+    _assert_rows_close(ours, dref)
+
+
+@pytest.mark.parametrize("scene", ["bench", "heavy", "early_out"])
+def test_tile_composite_fwd_variants_match_plain(cuda, scene, monkeypatch):
+    """K3 at every variant on the same views (K = 1,024): output and state
+    against the plain version (1e-3, as K3_ATOL), and K3ᵇ fed the state
+    against its plain replay (1e-4 of each row's scale)."""
+    g, view, S = _scene_view(cuda, scene)
+    with torch.no_grad():
+        args = tt._prepare_view(g, view, S, TAN, 1.0, 32, 32, 1024)
+        assert int(args[1].max()) == 1024
+        ref, ref_state = tt.tile_composite_reference(*args, return_state=True)
+        work = tt.tile_composite_work(*args)
+    if scene == "early_out":
+        assert bool((work["tile_chunks"] * 128 < args[1]).any())
+    out, state = _k3_every_variant(args, monkeypatch)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert (state - ref_state).abs().max().item() <= 1e-3
+    go = torch.as_tensor(np.random.default_rng(3).normal(0, 1, out.shape),
+                         dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        ours = tt.tile_composite_bwd(*args, out, go, state)
+        dref = tt.tile_composite_bwd_reference(*args, out, go)
+    _rows_first_close(ours, dref)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (8, 32), (8, 16), (4, 8)])
+def test_compositor_variants_on_small_tiles(cuda, tile, monkeypatch):
+    """Tiles of 256, 128 and 32 pixels, which the wrappers accept: each
+    variant launches at flatsort.launch_shape's (cluster, pixels a
+    thread), whole warps a block, and K2 and K3 match their plain
+    versions with the same bits at every variant."""
+    th, tw = tile
+    P = th * tw
+    for variant in fs.VARIANTS:
+        cs, ppt = fs.launch_shape(P, variant)
+        assert P % (32 * cs * ppt) == 0 and cs <= variant[0]
+    params, counts, tiles_x = _banded_slots(cuda, 10, tile)
+    args = (params, counts, th, tw, tiles_x)
+    with torch.no_grad():
+        ref, ref_state = fs.composite_reference(*args, return_state=True)
+    out, state = _k2_every_variant(args, monkeypatch)
+    assert (out - ref).abs().max().item() <= 1e-3
+    assert (state - ref_state).abs().max().item() <= 1e-3
+    targs = (_tiled_params(params, tile, tiles_x), counts,
+             tt._pixel_features(th, tw, cuda))
+    with torch.no_grad():
+        tref, tref_state = tt.tile_composite_reference(*targs,
+                                                       return_state=True)
+    tout, tstate = _k3_every_variant(targs, monkeypatch)
+    assert (tout - tref).abs().max().item() <= 1e-3
+    assert (tstate - tref_state).abs().max().item() <= 1e-3
+
+
+def test_composite_fwd_refuses_unaligned_params(cuda):
+    """K2 copies a chunk's rows in 16-byte units: params that do not start
+    on a 16-byte boundary are refused, not read past."""
+    base = torch.zeros(4 * 128 * 9 + 1, device=cuda)
+    params = base[1:].view(4, 128, 9)
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        fs.composite_fwd(params, counts, 32, 32, 2)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_nano_trains_one_step_on_the_card(cuda, precision, monkeypatch):
+    """The attention gate on the card: the nano preset (head dim 96/16 =
+    6, which K1 does not take) trains one step in fp32 and in bf16 with a
+    finite loss, every attention call on the dense route."""
+    import lgm_tpu_torch.models.unet as unet_mod
+    from lgm_tpu_torch import train
+    from lgm_tpu_torch.config import get_config
+    from lgm_tpu_torch.data.synthetic import make_batch
+
+    routes = []
+    for route, name in (("kernel", "mha"), ("dense", "dense_attention")):
+        fn = getattr(unet_mod, name)
+        monkeypatch.setattr(unet_mod, name, lambda *a, fn=fn, route=route: (
+            routes.append(route), fn(*a))[1])
+    opt = get_config("nano").replace(mixed_precision=precision)
+    state = train.create_state(opt, cuda)
+    data = train._batch_data(make_batch(np.random.default_rng(1), opt,
+                                        device=cuda))
+    m = train.train_step(state, data, torch.ones(3, device=cuda))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["gnorm"]))
+    assert routes and set(routes) == {"dense"}

@@ -1,8 +1,11 @@
 """Port's U-Net and LGM forward vs the reference torch goldens and vs
 lgm_tpu's Flax modules (weights passed through flax_params_to_state_dict).
 
-All at f32 on the CPU, where attention takes K1's plain version. Goldens
-use test_golden_unet.py's tolerances (1e-4 of the output scale)."""
+All at f32 on the CPU, where attention takes the dense route (the gate's
+choice at f32, on the card too). Goldens use test_golden_unet.py's
+tolerances (1e-4 of the output scale). Also the attention gate itself:
+its choice of route, and the dense route against lgm_tpu's dense
+attention."""
 
 import os
 
@@ -18,7 +21,10 @@ from lgm_tpu.models.lgm import LGM as JaxLGM
 from lgm_tpu.models.lgm import activate_gaussians as jax_activate
 from lgm_tpu_torch.config import Options, get_config
 from lgm_tpu_torch.models.lgm import LGM, activate_gaussians
-from lgm_tpu_torch.models.unet import UNet
+from lgm_tpu.models.unet import _attention as jax_attention
+from lgm_tpu_torch.models import unet as unet_mod
+from lgm_tpu_torch.models.unet import UNet, attention
+from lgm_tpu_torch.ops.mha import kernel_takes
 from lgm_tpu_torch.weights import (flax_params_to_state_dict,
                                    load_reference_weights,
                                    load_state_dict_into)
@@ -147,3 +153,79 @@ def test_activate_gaussians_matches_jax():
     assert np.all(y[0, :, 8] == 0.0)
     np.testing.assert_allclose(np.linalg.norm(y[1, :, 7], axis=0), 1.0,
                                rtol=1e-5)
+
+
+# (dtype, S, D, route): the 16 LGM-big sites in bf16 (S 4096 / 1024 / 256
+# at D 32 / 64 / 64), the same in fp32, nano's head dim of 6, and the
+# shapes K1 refuses.
+_ROUTES = [
+    (torch.bfloat16, 4096, 32, "kernel"), (torch.bfloat16, 1024, 64, "kernel"),
+    (torch.bfloat16, 256, 64, "kernel"), (torch.float32, 4096, 32, "dense"),
+    (torch.float32, 256, 64, "dense"), (torch.bfloat16, 256, 6, "dense"),
+    (torch.bfloat16, 192, 32, "dense"), (torch.bfloat16, 256, 48, "dense"),
+]
+
+
+@pytest.mark.parametrize("dtype,S,D,route", _ROUTES)
+def test_attention_gate_routes_by_dtype_and_shape(dtype, S, D, route,
+                                                  monkeypatch):
+    """The gate sends attention to mha (K1/K1ᵇ on the card) exactly where
+    K1 takes it, and to the dense plain path elsewhere; on a CPU tensor
+    the same choice as on the card."""
+    assert kernel_takes(dtype, S, D, D ** -0.5) == (route == "kernel")
+    called = []
+    monkeypatch.setattr(unet_mod, "mha",
+                        lambda *a: called.append("kernel") or a[0])
+    monkeypatch.setattr(unet_mod, "dense_attention",
+                        lambda *a: called.append("dense") or a[0])
+    x = torch.zeros(1, S, D, dtype=dtype)
+    attention(x, x, x, D ** -0.5)
+    assert called == [route]
+
+
+# (dtype, B, S, heads, D, tolerance): fp32 at two head dims, and nano's
+# bf16 D = 6. fp32: the same f32 products and softmax, sums in other
+# orders (1e-5 of the scale). bf16: both cast the f32 probabilities to
+# bf16 and take P.V and its gradients in bf16 with f32 sums, in other
+# orders: one bf16 rounding step (2^-8 of the scale).
+_DENSE = [("float32", 2, 256, 4, 32, 1e-5), ("float32", 1, 64, 16, 6, 1e-5),
+          ("bfloat16", 2, 64, 16, 6, 2.0 ** -8)]
+
+
+@pytest.mark.parametrize("dtype,B,S,H,D,tol", _DENSE)
+def test_dense_attention_matches_jax(dtype, B, S, H, D, tol):
+    """The dense route against lgm_tpu's ``_attention`` on the CPU, which
+    is ``jax.nn.dot_product_attention`` there: forward and the gradient
+    of a seeded linear loss, on seeded inputs, through the port's gate."""
+    rng = np.random.default_rng(S + D)
+    q, k, v, g = (rng.normal(0, 1, (B, S, H, D)).astype(np.float32)
+                  for _ in range(4))
+    jdt = jnp.dtype(dtype)
+
+    def jax_loss(q, k, v):
+        o = jax_attention(q, k, v)
+        return (o.astype(jnp.float32) * g).sum(), o
+
+    (_, o_jax), grads_jax = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    tdt = getattr(torch, dtype)
+
+    def heads(x):  # [B, S, H, D] -> [B*H, S, D], as MVAttention's
+        return torch.as_tensor(x).to(tdt).transpose(1, 2).reshape(
+            B * H, S, D).contiguous().requires_grad_()
+
+    tq, tk, tv = (heads(x) for x in (q, k, v))
+    assert not kernel_takes(tdt, S, D, D ** -0.5)
+    o = attention(tq, tk, tv, D ** -0.5)
+    assert o.dtype == tdt
+    o.float().backward(heads(g).detach().float())
+
+    def back(x):  # [B*H, S, D] -> [B, S, H, D]
+        return x.detach().float().reshape(B, H, S, D).transpose(1, 2).numpy()
+
+    for ours, ref in zip([o] + [t.grad for t in (tq, tk, tv)],
+                         [o_jax, *grads_jax]):
+        ref = np.asarray(ref.astype(jnp.float32))
+        err = np.abs(back(ours) - ref).max()
+        assert err <= tol * np.abs(ref).max(), err
