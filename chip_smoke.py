@@ -26,7 +26,15 @@ checked against the counts each path must give):
   K3ᵇ held against their plain versions on that step's own inputs, and
   the backend's image held against the oracle and flatsort;
 - the attention gate: the ``nano`` preset (head dim 6) trained one step
-  in fp32 and in bf16, every site on the dense route, losses finite.
+  in fp32 and in bf16, every site on the dense route, losses finite;
+- the diffusion front-end: K1 at the MV-U-Net's level-0 shapes (phase
+  ``k1_diffusion``); MVDream's text path at its published widths, 4 steps
+  (``diffusion_text``: K1 5 a U-Net call); and the single-image path,
+  ImageDream at published widths through ``infer.image_to_views`` (30
+  steps) into LGM big's ``infer.process`` (``image_to_3d``: K1 150 + 16,
+  K2 180; a level-0 site and the U-Net's ε held on that run's own
+  inputs; one U-Net call profiled). Weights are seeded and random; the
+  tokenizer is the committed BPE fixture.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
@@ -69,6 +77,19 @@ K1_REL_TOL = 2.0 ** -7
 # and sums taken in other orders (and ex2.approx in the kernel): 1e-5 of
 # max(1, the largest |L|).
 K1_LSE_REL_TOL = 1e-5
+# K1 in the diffusion U-Net at 256²: (BH, S, D) of the level-0 joint
+# self-attention by model, BH = 2 (the CFG pair) x 5 heads, S = F x 32²,
+# and its sites a U-Net call (2 on the way down, 3 on the way up); the
+# single-image path's steps (lgm_tpu/infer.py:373).
+K1_DIFFUSION_SHAPES = {"mvdream": (10, 4096, 64), "imagedream": (10, 5120, 64)}
+DIFFUSION_SITES = 5
+N_DIFFUSION_STEPS = 30
+# The ImageDream U-Net's ε on the K1 route against the gate forced dense,
+# each CFG branch, relative RMS error: the two routes round P at different
+# points (K1 the unnormalized P, the dense path the normalized one), up to
+# 2^-7 of each site's scale; through 5 sites and the bf16 layers after
+# them, at most 2^-5.
+EPS_ROUTE_REL_TOL = 2.0 ** -5
 # Every kernel is timed over this many calls back to back (see cuda_ms):
 # its device time, which the host's time to enqueue one call (longer than
 # the kernels' at S = 256) would otherwise hide; one call beside it.
@@ -1262,14 +1283,16 @@ def phase_v1_image(dev):
         raise AssertionError(f"pallas_v1 vs the oracle: mean abs {mean}")
 
 
-def route_counts():
+def route_counts(unet_mod=None):
     """A context in which the attention gate's two routes are counted:
     yields {"kernel": calls of mha, "dense": calls of dense_attention},
-    filled in as the model runs."""
+    filled in as the model runs (in ``models/unet.py``, or in the module
+    ``unet_mod`` given: ``diffusion/mv_unet.py``)."""
     import contextlib
     from unittest import mock
 
-    import lgm_tpu_torch.models.unet as unet_mod
+    if unet_mod is None:
+        import lgm_tpu_torch.models.unet as unet_mod
 
     @contextlib.contextmanager
     def counting():
@@ -1320,6 +1343,332 @@ def phase_nano(dev):
         out[precision] = dict(loss=loss, gnorm=float(m["gnorm"]),
                               attention_sites=sites, attention_routes=routes)
     emit("nano_precisions", **out)
+
+
+def phase_k1_diffusion(dev):
+    """K1 at the diffusion U-Net's level-0 joint self-attention
+    (``K1_DIFFUSION_SHAPES``) against its plain version, run twice for the
+    same bits, its device time over K1_LAUNCHES calls beside SDPA's
+    forward and the bound. Returns the kernels-line entries by model."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lgm_tpu_torch.ops.mha import (_FWD_BLOCKS, _sms, block_shape,
+                                       mha_fwd, mha_reference)
+
+    out = {}
+    for model, (BH, S, D) in K1_DIFFUSION_SHAPES.items():
+        rng = np.random.default_rng(S + D + BH)
+        q, k, v = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
+                                   dtype=torch.float32, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        scale = float(D) ** -0.5
+        o, lse, err, tol, lse_err, lse_tol = check_k1(q, k, v, scale, model)
+        with torch.inference_mode():
+            o2, lse2 = mha_fwd(q, k, v, scale, return_lse=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+                raise AssertionError(f"K1 {model}: two runs differ")
+            del o2, lse2
+            # Inference writes no statistic.
+            ms = cuda_ms(lambda: mha_fwd(q, k, v, scale),
+                         launches=K1_LAUNCHES)
+            plain_ms = cuda_ms(lambda: mha_reference(q, k, v, scale), reps=5)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale),
+                launches=K1_LAUNCHES)
+        mt, nw = block_shape(_FWD_BLOCKS[D], BH, S, _sms(dev))
+        b_ms, b_by = k1_bound(BH, S, D)
+        # Derived, not counted: a 30-step image's launches (the paths
+        # count theirs in phases diffusion_text and image_to_3d).
+        per_image = DIFFUSION_SITES * N_DIFFUSION_STEPS
+        emit("k1_diffusion", model=model, shape=[BH, S, D],
+             sites_per_unet_call=DIFFUSION_SITES,
+             derived_launches_per_image=per_image, block_shape=[mt, nw],
+             blocks=S // (16 * mt * nw) * BH, max_abs_err=err, tol=tol,
+             lse_max_abs_err=lse_err, lse_tol=lse_tol, bitwise_repeat=True,
+             kernel_ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+             kernel_over_library=ms / sdpa_ms, bound_us=b_ms * 1e3,
+             bound_by=b_by, derived_kernel_ms_per_image=ms * per_image)
+        out[model] = dict(shape=[BH, S, D], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=sdpa_ms)
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def stage_clock(pipe):
+    """A context in which spies on ``pipe``'s methods time the pipeline's
+    stages: yields {stage: wall seconds}, each call timed from a device
+    synchronize before it to one after it and summed by stage (``clip_s``:
+    the text and vision towers; ``vae_encode_s``, ``denoise_s``,
+    ``decode_s``), and ``views_s``, ``infer.image_to_views``' resize of
+    the generated views."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from lgm_tpu_torch import infer
+
+    stages = {"encode_prompt": "clip_s", "encode_image": "clip_s",
+              "encode_image_latents": "vae_encode_s",
+              "denoise": "denoise_s", "decode": "decode_s"}
+
+    @contextlib.contextmanager
+    def clock():
+        times = {}
+
+        def timed(fn, stage):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                times[stage] = (times.get(stage, 0.0)
+                                + time.perf_counter() - t0)
+                return out
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for method, stage in stages.items():
+                stack.enter_context(mock.patch.object(
+                    pipe, method, timed(getattr(pipe, method), stage)))
+            stack.enter_context(mock.patch.object(
+                infer, "resize", timed(infer.resize, "views_s")))
+            yield times
+
+    return clock()
+
+
+def fixture_tokenizer(max_tokens: int):
+    """The CLIP BPE tokenizer of the committed fixture (no published
+    vocabulary is in the repository)."""
+    from lgm_tpu_torch.diffusion.tokenizer import CLIPTokenizer
+
+    return CLIPTokenizer(os.path.join(ROOT, "tests", "fixtures",
+                                      "clip_tokenizer"), max_tokens)
+
+
+def phase_diffusion_text(dev):
+    """MVDream at its published widths (``CONFIGS["mvdream"]``: bf16 U-Net
+    and VAE, f32 CLIP) with seeded random weights and the fixture
+    tokenizer: "a red chair", guidance 7.5, 4 steps; K1 at exactly the 5
+    level-0 sites of every U-Net call, the images finite in [0, 1]."""
+    import numpy as np
+    import torch
+
+    import lgm_tpu_torch.diffusion.mv_unet as mv
+    from lgm_tpu_torch.diffusion.pipeline import CONFIGS, MVDreamPipeline
+    from lgm_tpu_torch.ops.mha import mha_fwd
+
+    steps = 4
+    t0 = time.perf_counter()
+    pipe = MVDreamPipeline.from_config(
+        "mvdream", seed=0, device=str(dev),
+        tokenizer=fixture_tokenizer(CONFIGS["mvdream"].max_tokens))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    mha_fwd.launches = 0
+    with route_counts(mv) as routes, stage_clock(pipe) as timings:
+        t0 = time.perf_counter()
+        images = pipe(prompt="a red chair", guidance_scale=7.5,
+                      num_inference_steps=steps, seed=0)
+        total_s = time.perf_counter() - t0
+    launches = {"mha_fwd": mha_fwd.launches}
+    expected = {"mha_fwd": DIFFUSION_SITES * steps}
+    if launches != expected or routes["kernel"] != expected["mha_fwd"]:
+        raise AssertionError(f"launches {launches}, expected {expected}; "
+                             f"attention routes {routes}")
+    if not (images.shape == (4, 256, 256, 3) and np.isfinite(images).all()
+            and images.min() >= 0.0 and images.max() <= 1.0):
+        raise AssertionError(f"images {images.shape}, finite "
+                             f"{np.isfinite(images).all()}, range "
+                             f"[{images.min()}, {images.max()}]")
+    n_params = sum(p.numel() for m in pipe.modules().values()
+                   for p in m.parameters())
+    emit("diffusion_text", config="mvdream", params=n_params, load_s=load_s,
+         steps=steps, guidance=7.5, images=list(images.shape),
+         image_mean=float(images.mean()), image_std=float(images.std()),
+         launches=launches, attention_routes=routes, total_s=total_s,
+         step_ms=timings["denoise_s"] / steps * 1e3, **timings,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_image_to_3d(dev, model):
+    """The slice's path at full width: a seeded 512² RGBA (the port's
+    render of ``sample_scene`` with its alpha, in OpenCV's BGRA order)
+    through ``infer.image_to_views`` with ImageDream
+    (``CONFIGS["imagedream"]``, ip_dim 16, seeded random weights, the
+    fixture tokenizer; 30 steps, guidance 5.0, elevation 0), then LGM big's
+    ``infer.process`` with phase ``main``'s model, for two objects one
+    after the other (the process's first, then a warm one), each with
+    exact launch counts (K1 150 in the pipeline + 16 in the LGM forward,
+    K2 180) and its stage times; peak memory; then, on the last U-Net
+    call's own inputs, one
+    level-0 site's K1 output against its plain version, the U-Net's ε on
+    the K1 route against the same call with the gate forced dense, and a
+    profile of that call."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import lgm_tpu_torch.diffusion.mv_unet as mv
+    from lgm_tpu_torch import infer
+    from lgm_tpu_torch.config import CONFIGS as LGM_CONFIGS
+    from lgm_tpu_torch.data.synthetic import sample_scene
+    from lgm_tpu_torch.diffusion.pipeline import CONFIGS, MVDreamPipeline
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+    from lgm_tpu_torch.ops.gsplat.api import render_views
+    from lgm_tpu_torch.ops.mha import mha_fwd
+
+    opt = LGM_CONFIGS["big"]
+    tan = float(np.tan(0.5 * np.deg2rad(opt.fovy)))
+    g = torch.as_tensor(sample_scene(np.random.default_rng(7), 65536),
+                        device=dev)
+    view = torch.as_tensor(infer.orbit_video_cameras(opt, 8)["cam_view"][1],
+                           device=dev)
+    with torch.inference_mode():
+        r = render_views(g[None], view[None, None], 512, tan, dup=32)
+        rgba = torch.cat([r["image"][0, 0], r["alpha"][0, 0]], -1)
+    bgra = rgba.cpu().numpy()[..., [2, 1, 0, 3]]
+    del g, r, rgba
+
+    t0 = time.perf_counter()
+    pipe = MVDreamPipeline.from_config(
+        "imagedream", seed=1, device=str(dev),
+        tokenizer=fixture_tokenizer(CONFIGS["imagedream"].max_tokens))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    # Spies, not on the counted wrappers: the last U-Net call's inputs
+    # and one level-0 site's q, k, v, scale and output.
+    captured = {}
+    unet_forward = pipe.unet.forward
+
+    def spy_unet(*args, **kw):
+        captured["unet"] = (args, kw)
+        return unet_forward(*args, **kw)
+
+    def spy_mha(mha):
+        def call(q, k, v, scale):
+            o = mha(q, k, v, scale)
+            captured["site"] = (q, k, v, scale, o)
+            return o
+        return call
+
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    # LGM big's attention sites (phase main checks that LGM big in bf16
+    # takes the kernel route at all of them).
+    lgm_sites = sum(type(m).__name__ == "MVAttention"
+                    for m in model.modules())
+    expected = {"mha_fwd": DIFFUSION_SITES * N_DIFFUSION_STEPS + lgm_sites,
+                "composite_fwd": 180}
+
+    def one_object():
+        """image -> views -> LGM -> .ply and orbit, counted and timed."""
+        mha_fwd.launches = 0
+        fs.composite_fwd.launches = 0
+        with route_counts(mv) as routes, stage_clock(pipe) as times, \
+                mock.patch.object(pipe.unet, "forward", spy_unet), \
+                mock.patch.object(mv, "mha", spy_mha(mv.mha)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            views = infer.image_to_views(pipe, bgra, opt, elevation=0.0)
+            res = infer.process(opt, views, os.path.join(work, "image_to_3d"),
+                                device=str(dev), model=model)
+            torch.cuda.synchronize()
+            times["image_to_3d_s"] = time.perf_counter() - t0
+        launches = {"mha_fwd": mha_fwd.launches,
+                    "composite_fwd": fs.composite_fwd.launches}
+        if launches != expected or routes["kernel"] != (
+                DIFFUSION_SITES * N_DIFFUSION_STEPS):
+            raise AssertionError(f"launches {launches}, expected "
+                                 f"{expected}; diffusion attention routes "
+                                 f"{routes}")
+        gs = res["gaussians"]
+        if not (views.shape == (4, opt.input_size, opt.input_size, 3)
+                and np.isfinite(views).all() and views.min() >= 0.0
+                and views.max() <= 1.0 and np.isfinite(gs).all()
+                and gs.shape == (1, 4 * opt.splat_size ** 2, 14)
+                and res["frames"].shape == (180, opt.output_size,
+                                            opt.output_size, 3)):
+            raise AssertionError(
+                f"views {views.shape} in [{views.min()}, {views.max()}], "
+                f"gaussians {gs.shape} finite {np.isfinite(gs).all()}, "
+                f"frames {res['frames'].shape}")
+        times.update(forward_s=res["forward_s"], orbit_s=res["orbit_s"],
+                     step_ms=times["denoise_s"] / N_DIFFUSION_STEPS * 1e3)
+        return launches, routes, times, views.shape, gs.shape
+
+    # The process's first object (its first run of the vision tower, the
+    # ip branch and the VAE encoder), then a second one: the warm time is
+    # the metric, the first is printed beside it.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, _, first, _, _ = one_object()
+    launches, routes, timings, views_shape, gs_shape = one_object()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # The level-0 site on its own inputs: what the U-Net got from K1 is
+    # K1's output again (deterministic), within K1's tolerance of the
+    # plain version.
+    q, k, v, scale, site_o = captured["site"]
+    site_shape = list(q.shape)
+    with torch.inference_mode():
+        o, _, site_err, site_tol, _, _ = check_k1(q, k, v, scale,
+                                                  "image_to_3d site")
+        if not torch.equal(o, site_o):
+            raise AssertionError("K1 on the site's inputs differs from the "
+                                 "output the U-Net used")
+        del q, k, v, site_o, o
+        # The whole U-Net's ε on the K1 route against the gate forced
+        # dense, on the last call's own inputs, each CFG branch held
+        # (relative RMS error, EPS_ROUTE_REL_TOL). The uncond branch's ip
+        # frame is the all-zero latent; at ImageDream's widths its first
+        # GroupNorm sees 10 channels a group, each with its own stem bias,
+        # so that branch is as well conditioned as the cond one.
+        args, kw = captured["unet"]
+        eps = unet_forward(*args, **kw).float()
+        with mock.patch.object(mv, "kernel_route", lambda *a: False):
+            eps_dense = unet_forward(*args, **kw).float()
+        half = eps.shape[0] // 2
+        branch = {}
+        for name, sl in (("uncond", slice(0, half)),
+                         ("cond", slice(half, None))):
+            diff = eps[sl] - eps_dense[sl]
+            branch[name] = dict(
+                max_abs_err=float(diff.abs().max()),
+                scale=float(eps_dense[sl].abs().max()),
+                rel_rms_err=float(diff.norm() / eps_dense[sl].norm()))
+        if not (torch.isfinite(eps).all()
+                and all(b["rel_rms_err"] <= EPS_ROUTE_REL_TOL
+                        for b in branch.values())):
+            raise AssertionError(f"U-Net ε, K1 route vs dense: {branch}, "
+                                 f"tol {EPS_ROUTE_REL_TOL}")
+        del eps, eps_dense
+    emit("image_to_3d", config="imagedream", lgm="big",
+         input=list(bgra.shape), load_s=load_s,
+         steps=N_DIFFUSION_STEPS, guidance=5.0, launches=launches,
+         diffusion_attention_routes=routes, **timings, first_call=first,
+         peak_mem_gb=peak_gb, views=list(views_shape),
+         gaussians=list(gs_shape), site_shape=site_shape,
+         site_max_abs_err=site_err, site_tol=site_tol,
+         eps_k1_vs_dense=branch, eps_rel_tol=EPS_ROUTE_REL_TOL)
+    with torch.inference_mode():
+        profile_window("unet_imagedream",
+                       lambda: unet_forward(*args, **kw))
+    del pipe, captured, args, kw
+    torch.cuda.empty_cache()
+    return launches
 
 
 def median(xs):
@@ -1385,8 +1734,11 @@ def main() -> int:
     k3, k3_args, k3_out, k3_work = phase_k3(dev, ptxas)
     k3b = phase_k3_bwd(dev, k3_args, k3_out, k3_work)
     del k3_args, k3_out
+    k1_diffusion = phase_k1_diffusion(dev)
     infer_launches, model, mv, gaussians = phase_main(dev)
     phase_profile(dev, model, mv, gaussians)
+    text_launches = phase_diffusion_text(dev)
+    image_launches = phase_image_to_3d(dev, model)
     del model
     torch.cuda.empty_cache()
     launches = phase_train(dev)
@@ -1403,12 +1755,16 @@ def main() -> int:
              source="lgm_tpu_torch/ops/csrc/mha_fwd.cu",
              replaces="lgm_tpu/ops/mha.py:42", launches=launches["mha_fwd"],
              infer_launches=infer_launches["mha_fwd"],
+             diffusion_text_launches=text_launches["mha_fwd"],
+             image_to_3d_launches=image_launches["mha_fwd"],
+             diffusion_shapes=k1_diffusion,
              **{k: k1[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_fwd.cu",
              replaces="lgm_tpu/ops/gsplat/flatsort.py:462",
              launches=launches["composite_fwd"],
              infer_launches=infer_launches["composite_fwd"],
+             image_to_3d_launches=image_launches["composite_fwd"],
              **{k: k2[k] for k in keys}),
         dict(name="mha_bwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",

@@ -3,11 +3,17 @@
 A second package beside ``lgm_tpu`` (the JAX/TPU reference, which it never
 imports): the same modules under the same names, in PyTorch, with a kernel
 written by hand in CUDA C++ for ``sm_90a`` wherever ``lgm_tpu`` wrote a
-Pallas kernel. It covers LGM inference and single-GPU training:
+Pallas kernel. It covers LGM inference from four views or from one image
+(the MVDream / ImageDream front-end) and single-GPU training:
 
 - ``config``         Options + presets (copy of ``lgm_tpu.config``)
 - ``utils.camera``   orbit poses, Plücker rays, rasterizer cameras (numpy)
+- ``utils.image``, ``utils.resize``  recentring, compositing, OpenCV's
+                     linear / cubic / area resizes (numpy)
 - ``utils.logging``  JSONL metrics (+ TensorBoard), image grids
+- ``diffusion``      the multi-view diffusion pipeline: MV-U-Net (K1 at
+                     its joint self-attention), VAE, CLIP towers and BPE
+                     tokenizer, DDIM
 - ``io.ply``         PLY import/export
 - ``data.synthetic`` seeded scenes and poses, views rendered on the device
 - ``models``         the multi-view U-Net, the LGM forward and its loss
@@ -17,7 +23,9 @@ Pallas kernel. It covers LGM inference and single-GPU training:
 - ``ops.gsplat``     projection, flatsort binning, kernels K2 and K2ᵇ
                      (``gsplat/csrc/composite_{fwd,bwd}.cu``), the oracle
 - ``weights``        reference state dicts and Flax parameter trees
-- ``infer``          images -> Gaussians -> .ply + orbit frames
+                     (LGM and the diffusion pipeline)
+- ``infer``          one image or four views -> Gaussians -> .ply + orbit
+                     frames
 - ``train``          AdamW training loop, checkpoints, resume
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

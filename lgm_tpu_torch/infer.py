@@ -1,18 +1,27 @@
-"""Inference: four views -> Gaussians -> .ply + 360° orbit frames.
+"""Inference: image(s) -> Gaussians -> .ply + 360° orbit frames.
 
-Port of the ``--mv-images`` path of ``lgm_tpu/infer.py`` (ref:
-infer.py:26-157): four ready views at azimuth 0/90/180/270 with their
-canonical Plücker rays -> LGM forward -> ``.ply`` -> a 180-frame orbit at
-the preset's output size (flatsort, dup 32, with depth; kernel K2 per
-frame on the card). The single-image diffusion front-end (``--image``)
-waits for its own slice.
+Port of ``lgm_tpu/infer.py`` (ref: infer.py:26-157). Two inputs:
+
+- ``--mv-images a.png b.png c.png d.png``: four ready views at azimuth
+  0/90/180/270 with their canonical Plücker rays;
+- ``--image x.png``: one image through the diffusion front-end
+  (``image_to_views``: background handling, recentring, ImageDream with
+  30 steps at guidance 5.0, the view reorder ``[1, 2, 3, 0]``), from a
+  diffusers-layout ``--diffusion-ckpt`` directory.
+
+Then the LGM forward -> ``.ply`` -> a 180-frame orbit at the preset's
+output size (flatsort, dup 32, with depth; kernel K2 per frame on the
+card; K1 in the U-Nets).
 
 ``process`` writes the orbit as mp4 through OpenCV where ``cv2`` imports;
 otherwise the frames go to ``<stem>.frames.npy`` (uint8 [F, S, S, 3]),
-and the path written is printed either way.
+and the path written is printed either way. Reading image files needs
+``cv2``; ``image_to_views`` and ``process`` take arrays.
 
 Run: python -m lgm_tpu_torch.infer big --mv-images a.png b.png c.png d.png
          --workspace out [--resume model.safetensors] [--device cuda]
+     python -m lgm_tpu_torch.infer big --image x.png --diffusion-ckpt DIR
+         --workspace out [--elevation 0] [--device cuda]
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ from lgm_tpu_torch.models.lgm import LGM
 from lgm_tpu_torch.models.unet import use_full_float32
 from lgm_tpu_torch.ops.gsplat.api import render_views
 from lgm_tpu_torch.utils import camera
+from lgm_tpu_torch.utils.image import recenter, rgba_to_rgb_white
+from lgm_tpu_torch.utils.resize import resize
 from lgm_tpu_torch.weights import load_reference_weights
 
 
@@ -61,6 +72,43 @@ def _load_rgba(path: str, size: int) -> np.ndarray:
     else:
         img = img[..., [2, 1, 0]]
     return cv2.resize(img, (size, size), interpolation=cv2.INTER_AREA)
+
+
+def remove_background(path: str) -> Optional[np.ndarray]:
+    """BGRA float [H, W, 4] in [0, 1] from ``rembg`` where it imports,
+    else None (ref: infer.py:13,78)."""
+    try:
+        import rembg
+    except ImportError:
+        return None
+    import cv2
+
+    out = rembg.remove(cv2.imread(path), session=rembg.new_session())
+    return out.astype(np.float32) / 255.0
+
+
+def image_to_views(pipe, image: np.ndarray, opt: Options,
+                   elevation: float = 0.0) -> np.ndarray:
+    """One image -> the four LGM input views [4, S, S, 3] in [0, 1], S =
+    ``opt.input_size`` (``lgm_tpu/infer.py:352-381``).
+
+    ``image`` is float in [0, 1] in OpenCV's channel order, as
+    ``cv2.imread(..., IMREAD_UNCHANGED) / 255`` or ``remove_background``
+    give it: [H, W, 4] BGRA (recentred on its alpha > 0 and composited
+    over white) or [H, W, 3] BGR. ``pipe`` (an image-conditioned
+    ``MVDreamPipeline``) makes its views with 30 steps at guidance 5.0;
+    views 1, 2, 3, 0 are resized (linear) to S."""
+    if image.shape[-1] == 4:
+        rgba = image[..., [2, 1, 0, 3]]
+        img = rgba_to_rgb_white(recenter(rgba, rgba[..., 3] > 0,
+                                         border_ratio=0.2))
+    else:
+        img = image[..., [2, 1, 0]]
+    mv = pipe(image=np.ascontiguousarray(img, np.float32), prompt="",
+              elevation=elevation, num_inference_steps=30,
+              guidance_scale=5.0)
+    s = opt.input_size
+    return np.stack([resize(m, (s, s), "linear") for m in mv[[1, 2, 3, 0]]])
 
 
 def build_input(mv_images: np.ndarray, opt: Options) -> np.ndarray:
@@ -201,8 +249,15 @@ def main(argv=None):
                         help="reference .safetensors/.pt state dict, or a "
                         "ckpt_N of lgm_tpu_torch.train")
     parser.add_argument("--workspace", type=str, default="./workspace")
-    parser.add_argument("--mv-images", nargs=4, required=True,
+    source = parser.add_mutually_exclusive_group(required=True)
+    source.add_argument("--image", type=str, default=None,
+                        help="one input image (runs the diffusion "
+                        "front-end)")
+    source.add_argument("--mv-images", nargs=4, default=None,
                         help="four multi-view images at az 0/90/180/270")
+    parser.add_argument("--diffusion-ckpt", type=str, default=None,
+                        help="diffusers-layout ImageDream directory")
+    parser.add_argument("--elevation", type=float, default=0.0)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--fancy-video", action="store_true")
     ns = parser.parse_args(argv)
@@ -212,9 +267,25 @@ def main(argv=None):
         opt = opt.replace(fancy_video=True)
     resolve_device(ns.device)
     os.makedirs(ns.workspace, exist_ok=True)
-    mv = np.stack([_load_rgba(p, opt.input_size) for p in ns.mv_images])
-    stem = os.path.join(
-        ns.workspace, os.path.splitext(os.path.basename(ns.mv_images[0]))[0])
+    first = ns.image or ns.mv_images[0]
+    stem = os.path.join(ns.workspace,
+                        os.path.splitext(os.path.basename(first))[0])
+    if ns.mv_images:
+        mv = np.stack([_load_rgba(p, opt.input_size) for p in ns.mv_images])
+    else:
+        from lgm_tpu_torch.diffusion.pipeline import MVDreamPipeline
+
+        image = remove_background(ns.image)
+        if image is None:
+            import cv2
+
+            raw = cv2.imread(ns.image, cv2.IMREAD_UNCHANGED)
+            if raw is None:
+                raise FileNotFoundError(f"cannot read {ns.image}")
+            image = raw.astype(np.float32) / 255.0
+        pipe = MVDreamPipeline.from_pretrained(ns.diffusion_ckpt,
+                                               device=ns.device)
+        mv = image_to_views(pipe, image, opt, ns.elevation)
     process(opt, mv, stem, resume=ns.resume, device=ns.device)
 
 

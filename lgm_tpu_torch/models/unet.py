@@ -70,12 +70,18 @@ def _linear(m: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """Exact softmax attention over [BH, S, D] in plain PyTorch, the
+                    scale: float, causal: bool = False) -> torch.Tensor:
+    """Exact softmax attention over [..., S, D] in plain PyTorch, the
     counterpart of ``jax.nn.dot_product_attention``'s XLA path: logits
     q·kᵀ in f32, scaled; softmax in f32; the probabilities cast to the
-    input dtype; P·V in it. Its gradient is autograd's."""
+    input dtype; P·V in it. ``causal`` masks each query's later keys. Its
+    gradient is autograd's."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        n, m = logits.shape[-2:]
+        later = torch.ones(n, m, dtype=torch.bool,
+                           device=logits.device).triu(1)
+        logits = logits.masked_fill(later, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, v)
 

@@ -15,7 +15,10 @@
 // The TPU called its kernel only where S >= 2048 (lgm_tpu/models/unet.py:
 // 61-62): that gate is a VMEM/HBM decision of that chip. The port calls
 // this kernel at every MVAttention site: S = 4096/D = 32, S = 1024/D = 64
-// and S = 256/D = 64 at the big preset.
+// and S = 256/D = 64 at the big preset. The diffusion U-Net
+// (diffusion/mv_unet.py) calls it where lgm_tpu's K-resident gate would:
+// its level-0 joint self-attention, S = 4096 (MVDream) or 5120
+// (ImageDream), D = 64, BH = 10.
 //
 // What bounds it on an H100: BH * S^2 exps on the SFUs (16 per clock per
 // SM), about 65 us at S = 4096, BH = 16, against ~35 us of tensor-core

@@ -31,7 +31,10 @@ equals exp(s − m)/l up to f32 rounding, so the function is the same.
 
 The TPU kernel ran only at S >= 2048 (``lgm_tpu/models/unet.py:61-62``),
 a VMEM/HBM choice of that chip; the port runs the kernels at every
-MVAttention site, since the function is the same at each.
+MVAttention site, since the function is the same at each. The diffusion
+U-Net (``diffusion/mv_unet.py::attention``) keeps ``lgm_tpu``'s own gate
+for its K-resident route: K1 at the level-0 joint self-attention (S 4096
+or 5120, D 64, BH 10 at 256²).
 """
 
 from __future__ import annotations

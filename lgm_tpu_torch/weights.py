@@ -12,6 +12,13 @@ whole ``LGMWithLoss`` tree (``lgm/...`` and ``lpips_loss/m/...``) it
 returns the state dict of the port's ``LGMWithLoss``: ``lgm.*`` as above,
 ``lpips_loss.vgg.conv{s}_{c}.*`` and ``lpips_loss.lin{k}``.
 
+``diffusion_params_to_state_dicts`` does the same for ``lgm_tpu``'s
+diffusion pipeline tree (``unet``, ``vae``, ``text_encoder``,
+``image_encoder``): it inverts ``lgm_tpu/tools/convert_diffusion.py``'s
+name maps (reference MVDream U-Net names, diffusers' VAE names) and
+transformers' Flax CLIP names, giving the state dicts of the port's
+``diffusion`` modules.
+
 Orbax checkpoints written by ``lgm_tpu.train`` need JAX to read and are
 not loaded here.
 """
@@ -77,6 +84,19 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
             sd.update({f"lpips_loss.{k}": v for k, v in _lpips_state_dict(
                 params["lpips_loss"]["m"]).items()})
         return sd
+    return _tree_to_state_dict(params, _torch_module_path)
+
+
+_LGM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_DIFFUSION_LEAVES = dict(_LGM_LEAVES, embedding="weight")
+
+
+def _tree_to_state_dict(tree: Mapping, module_name, leaves=_LGM_LEAVES,
+                        bare=()) -> Dict[str, np.ndarray]:
+    """Walk a Flax tree: each leaf named in ``leaves`` becomes that torch
+    leaf of ``module_name(path)`` (a kernel transposed to torch's layout);
+    each in ``bare`` is a bare parameter that keeps its name; any other
+    leaf is an error."""
     sd: Dict[str, np.ndarray] = {}
 
     def walk(node, path):
@@ -85,21 +105,127 @@ def flax_params_to_state_dict(params: Mapping) -> Dict[str, np.ndarray]:
                 walk(val, path + (key,))
                 continue
             arr = np.array(val, np.float32)  # a writable copy
-            if key == "kernel":
-                arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4
-                       else arr.T)
-                leaf = "weight"
-            elif key == "scale":
-                leaf = "weight"
-            elif key == "bias":
-                leaf = "bias"
+            if key in bare:
+                name = module_name(path + (key,))
+            elif key in leaves:
+                if key == "kernel":
+                    arr = (arr.transpose(3, 2, 0, 1) if arr.ndim == 4
+                           else arr.T)
+                name = f"{module_name(path)}.{leaves[key]}"
             else:
                 raise KeyError(f"unexpected Flax leaf {path + (key,)}")
-            sd[f"{_torch_module_path(path)}.{leaf}"] = np.ascontiguousarray(
-                arr)
+            sd[name] = np.ascontiguousarray(arr)
 
-    walk(params, ())
+    walk(tree, ())
     return sd
+
+
+_RES_NAMES = {"in_norm": "in_layers.0", "in_conv": "in_layers.2",
+              "emb_1": "emb_layers.1", "out_norm": "out_layers.0",
+              "out_conv": "out_layers.3", "skip": "skip_connection"}
+
+
+def _attn_inner_name(rest) -> str:
+    """The inside of a SpatialTransformer3D: Flax path -> torch name."""
+    out = []
+    for p in rest:
+        m = re.fullmatch(r"transformer_blocks_(\d+)", p)
+        if m:
+            out += ["transformer_blocks", m[1]]
+        elif p == "to_out_0":
+            out += ["to_out", "0"]
+        elif p == "net_0":
+            out += ["net", "0"]
+        elif p == "net_2":
+            out += ["net", "2"]
+        else:
+            out.append(p)
+    return ".".join(out)
+
+
+def _unet_module_name(path, tree: Mapping) -> str:
+    """Inverse of ``convert_diffusion.unet_torch_to_flax``."""
+    head, rest = path[0], path[1:]
+    fixed = {"time_embed_0": "time_embed.0", "time_embed_2": "time_embed.2",
+             "camera_embed_0": "camera_embed.0",
+             "camera_embed_2": "camera_embed.2", "out_norm": "out.0",
+             "out_conv": "out.2", "input_conv": "input_blocks.0.0"}
+    if head in fixed:
+        return fixed[head]
+    if head == "image_embed":
+        sub = rest[0]
+        m = re.fullmatch(r"layers_(\d+)_(attn|ff_norm|ff_1|ff_3)", sub)
+        if not m:
+            return "image_embed." + sub
+        tail = {"attn": "0", "ff_norm": "1.0", "ff_1": "1.1",
+                "ff_3": "1.3"}[m[2]]
+        return ".".join(["image_embed.layers", m[1], tail] + list(rest[1:]))
+    m = re.fullmatch(r"(in|out|mid)(\d+)_(res|attn|down|up)|mid_(res\d|attn)",
+                     head)
+    if m is None:
+        raise KeyError(f"unexpected U-Net module {path}")
+    if m[4]:  # mid_res0, mid_attn, mid_res1
+        idx = {"res0": 0, "attn": 1, "res1": 2}[m[4]]
+        kind = "attn" if m[4] == "attn" else "res"
+        block = f"middle_block.{idx}"
+    else:
+        side = "input_blocks" if m[1] == "in" else "output_blocks"
+        kind = m[3]
+        if kind in ("res", "down"):
+            idx = 0
+        elif kind == "attn":
+            idx = 1
+        else:  # an output block's Upsample follows its attention, if any
+            idx = 2 if f"out{m[2]}_attn" in tree else 1
+        block = f"{side}.{m[2]}.{idx}"
+    if kind == "res":
+        return f"{block}.{_RES_NAMES[rest[0]]}"
+    if kind == "attn":
+        return f"{block}.{_attn_inner_name(rest)}"
+    return f"{block}.{rest[0]}"  # down: op; up: conv
+
+
+def _vae_module_name(path) -> str:
+    """Inverse of ``convert_diffusion.vae_torch_to_flax``."""
+    side, head, rest = path[0], path[1], path[2:]
+    if head in ("quant_conv", "post_quant_conv"):
+        return head
+    m = re.fullmatch(r"(down|up|mid)(\d*)_(res\d+|downsample|upsample|attn)",
+                     head)
+    if m is None:
+        return ".".join((side, head) + tuple(rest))
+    if m[1] == "mid":
+        block = f"{side}.mid_block"
+    else:
+        block = f"{side}.{m[1]}_blocks.{m[2]}"
+    if m[3] in ("downsample", "upsample"):
+        return f"{block}.{m[3]}rs.0.conv"
+    if m[3] == "attn":
+        return f"{block}.attentions.0.{_attn_inner_name(rest)}"
+    return f"{block}.resnets.{m[3][3:]}.{'.'.join(rest)}"
+
+
+def diffusion_params_to_state_dicts(params: Mapping) -> Dict[str, Dict]:
+    """``lgm_tpu``'s diffusion pipeline tree (numpy leaves: ``unet``,
+    ``vae``, ``text_encoder``, ``image_encoder``, whichever are present)
+    -> the port's state dicts under the same keys: the reference MVDream
+    U-Net names, diffusers' VAE names, transformers' CLIP names."""
+    out: Dict[str, Dict] = {}
+    for comp, tree in params.items():
+        if comp == "unet":  # the Resampler's latents are bare
+            out[comp] = _tree_to_state_dict(
+                tree, lambda p, t=tree: _unet_module_name(p, t),
+                bare=("latents",))
+        elif comp == "vae":
+            out[comp] = _tree_to_state_dict(tree, _vae_module_name)
+        elif comp in ("text_encoder", "image_encoder"):
+            # CLIP's token and position embeddings; the vision tower's
+            # class embedding is bare
+            out[comp] = _tree_to_state_dict(tree, ".".join, _DIFFUSION_LEAVES,
+                                            bare=("class_embedding",))
+        else:
+            raise KeyError(f"unknown pipeline component {comp!r}")
+    return out
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels K1 and K1ᵇ at every block shape they
-are built for, at the shapes of LGM-big's MVAttention sites, beside SDPA.
+are built for, at the shapes of LGM-big's MVAttention sites and of the
+diffusion U-Net's level-0 self-attention, beside SDPA.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 scripts/torch_mha_blocks.py [--out chiprun_out/mha_blocks.jsonl]
 
-For each (BH, S, D) of one B = 1 forward and of the bs2 train step, it
+For each (BH, S, D) of one B = 1 forward, of the bs2 train step and of
+the MVDream / ImageDream U-Net at 256² (BH 10, S 4096 / 5120, D 64), it
 prints one JSON line per block shape (m-tiles per warp, warps per block)
 of K1 (with its row statistic), of K1ᵇ's dq kernel (its dK/dV kernel at
 the default shape) and of K1ᵇ's dK/dV kernel (dq at the default): the
@@ -26,7 +28,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(16, 4096, 32), (16, 1024, 64), (16, 256, 64),
-          (32, 4096, 32), (32, 1024, 64), (32, 256, 64)]
+          (32, 4096, 32), (32, 1024, 64), (32, 256, 64),
+          (10, 4096, 64), (10, 5120, 64)]
 
 
 def main() -> int:

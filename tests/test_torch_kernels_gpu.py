@@ -808,3 +808,50 @@ def test_nano_trains_one_step_on_the_card(cuda, precision, monkeypatch):
     torch.cuda.synchronize()
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["gnorm"]))
     assert routes and set(routes) == {"dense"}
+
+
+# K1 in the diffusion U-Net: the joint self-attention of level 0 at 256²
+# for MVDream (F = 4) and ImageDream (F = 5): BH = 2 (CFG) x 5 heads,
+# S = F x 32², D = 64.
+DIFFUSION_K1_SHAPES = [(10, 4096, 64), (10, 5120, 64)]
+
+
+@pytest.mark.parametrize("BH,S,D", DIFFUSION_K1_SHAPES)
+def test_mha_fwd_kernel_at_diffusion_shapes(cuda, BH, S, D):
+    rng = np.random.default_rng(S)
+    q, k, v = (_bf16(rng, (BH, S, D), cuda) for _ in range(3))
+    with torch.inference_mode():
+        o, lse = mha_fwd(q, k, v, D ** -0.5, return_lse=True)
+        ref, ref_lse = mha_reference(q, k, v, D ** -0.5, return_lse=True)
+        again = mha_fwd(q, k, v, D ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    _close(o, ref)
+    _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+
+
+def test_spatial_transformer_k1_route_matches_dense(cuda, monkeypatch):
+    """One level-0 SpatialTransformer3D at MVDream's widths (320 channels,
+    5 heads of 64, context 1024) on a CFG pair of 4 frames at 32² (the
+    joint sequence BH 10, S 4096): the K1 route against the same block
+    with the gate forced dense, both bf16. Beyond the attention's own two
+    rounding steps, the residual sums and the projections after it round
+    the difference again: four bf16 steps of the output scale."""
+    import lgm_tpu_torch.diffusion.mv_unet as mv
+
+    torch.manual_seed(0)
+    with cuda:
+        st = mv.SpatialTransformer3D(320, 5, 64, 1024, torch.bfloat16).eval()
+        x = torch.randn(8, 320, 32, 32).to(torch.bfloat16)
+        ctx = torch.randn(8, 77, 1024)
+    assert mv.kernel_route(torch.bfloat16, 2, 5, 4096, 4096, 64)
+    with torch.inference_mode():
+        before = mha_fwd.launches
+        ours = st(x, ctx, 4)
+        assert mha_fwd.launches == before + 1
+        monkeypatch.setattr(mv, "kernel_route", lambda *a: False)
+        dense = st(x, ctx, 4)
+    torch.cuda.synchronize()
+    assert mha_fwd.launches == before + 1
+    assert torch.isfinite(ours.float()).all()
+    _close(ours, dense, 2.0 ** -6)

@@ -1,5 +1,7 @@
 """Package boundary of lgm_tpu_torch: it and chip_smoke.py import neither
-JAX nor lgm_tpu, and the kernel build finds every csrc source."""
+JAX nor lgm_tpu, nor any package the card host lacks (transformers, cv2,
+regex, diffusers, ftfy, rembg), and the kernel build finds every csrc
+source."""
 
 import os
 import re
@@ -18,7 +20,9 @@ for m in pkgutil.walk_packages(lgm_tpu_torch.__path__, "lgm_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "lgm_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "lgm_tpu",
+                                    "transformers", "cv2", "regex",
+                                    "diffusers", "ftfy", "rembg"))
 print("BAD", bad)
 print("MODULES", len([m for m in sys.modules if m.startswith("lgm_tpu_torch")]))
 """
