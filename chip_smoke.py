@@ -34,13 +34,24 @@ checked against the counts each path must give):
   steps) into LGM big's ``infer.process`` (``image_to_3d``: K1 150 + 16,
   K2 180; a level-0 site and the U-Net's ε held on that run's own
   inputs; one U-Net call profiled). Weights are seeded and random; the
-  tokenizer is the committed BPE fixture.
+  tokenizer is the committed BPE fixture;
+- the trainer as users run it, on disk data: the port's PNG codec
+  (``png_codec``), an LVIS-layout dataset of 24 scenes x 12 views at 512²
+  written by it from the port's renders (``disk_dataset``), the loader at
+  LGM big's shapes with 8 worker processes (``loader``), ``train.main``
+  at ``big`` on that dataset in this process under ``torchrun``'s
+  one-rank environment (NCCL, DistributedDataParallel; 6 steps, the eval
+  and the checkpoint, then 2 steps with ``--zero1 1``; ``train_disk``:
+  the exact launches of K1, K1ᵇ, K2 and K2ᵇ a step, K1, K1ᵇ and K2ᵇ on
+  the first step's own inputs), and the ``infer`` CLI in a subprocess on
+  four PNG views with that checkpoint (``infer_cli``).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
-result. Outputs of the inference path go to ``build/smoke/``.
+result. Outputs of the inference and disk-data paths go to
+``build/smoke/``.
 """
 
 from __future__ import annotations
@@ -920,8 +931,6 @@ def phase_train(dev):
     site, and the last backward composite, view 0); then two steps in the
     CLI's default configuration (U-Net recompute on), timed with and
     without the batch's rendering; then a profile of one warm step."""
-    from unittest import mock
-
     import torch
 
     from lgm_tpu_torch import train
@@ -941,39 +950,15 @@ def phase_train(dev):
     n_params = sum(p.numel() for p in state.optimizer.params)
     gen = torch.Generator().manual_seed(42)
 
-    # Spies on the two autograd Functions' backward (not on the counted
-    # wrappers) keep the step's own K1ᵇ and K2ᵇ inputs: the deepest
-    # attention site and the last composite backward (view 0).
     captured = {}
-    orig_mha_back = mha_mod._MHA.backward
-    orig_comp_back = fs._Composite.backward
-
-    def spy_mha_back(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if q.shape[1] >= captured.get("k1_S", 0):
-            captured.update(k1=(q, k, v, o, do.contiguous(), ctx.scale, lse),
-                            k1_S=q.shape[1])
-        return orig_mha_back(ctx, do)
-
-    def spy_comp_back(ctx, go):
-        params, counts, out, k2_state = ctx.saved_tensors
-        captured["k2"] = (params, counts, out, go.contiguous(),
-                          k2_state) + ctx.tiling
-        captured.setdefault("views", []).append((params, counts)
-                                                + ctx.tiling)
-        return orig_comp_back(ctx, go)
-
     counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, fs.composite_fwd,
                 fs.composite_bwd)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     step_s, data_s, losses, gnorms = timed_steps(
-        state, train_ds, gen, dev, range(N_STEPS), spies=(
-            mock.patch.object(mha_mod._MHA, "backward",
-                              staticmethod(spy_mha_back)),
-            mock.patch.object(fs._Composite, "backward",
-                              staticmethod(spy_comp_back))))
+        state, train_ds, gen, dev, range(N_STEPS),
+        spies=backward_spies(captured))
     launches = {fn.__name__: fn.launches for fn in counters}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     # Per step: K1 and K1ᵇ at every attention site (16), K2 (with its
@@ -1083,6 +1068,49 @@ def phase_train(dev):
     bg = torch.rand(3, generator=gen).to(dev)
     profile_window("train_step", lambda: train.train_step(state, data, bg))
     return launches
+
+
+def backward_spies(captured: dict):
+    """Mock patches of the two autograd Functions' backward (not of the
+    counted wrappers) that keep a step's own K1ᵇ and K2ᵇ inputs in
+    ``captured``: ``k1``, the deepest attention site's (q, k, v, o, do,
+    scale, lse); ``k2``, the last composite backward's (view 0) params,
+    counts, output, grad, K2's state and tiling; ``views``, every
+    composite backward's (params, counts, tiling). Each reads
+    ``ctx.saved_tensors`` once (the U-Net recompute allows one unpack)
+    and hands the original backward a stand-in holding them."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from lgm_tpu_torch.ops import mha as mha_mod
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    orig_mha_back = mha_mod._MHA.backward
+    orig_comp_back = fs._Composite.backward
+
+    def spy_mha_back(ctx, do):
+        saved = ctx.saved_tensors
+        q, k, v, o, lse = saved
+        if q.shape[1] >= captured.get("k1_S", 0):
+            captured.update(k1=(q, k, v, o, do.contiguous(), ctx.scale, lse),
+                            k1_S=q.shape[1])
+        return orig_mha_back(SimpleNamespace(saved_tensors=saved,
+                                             scale=ctx.scale), do)
+
+    def spy_comp_back(ctx, go):
+        saved = ctx.saved_tensors
+        params, counts, out, k2_state = saved
+        captured["k2"] = (params, counts, out, go.contiguous(),
+                          k2_state) + ctx.tiling
+        captured.setdefault("views", []).append((params, counts)
+                                                + ctx.tiling)
+        return orig_comp_back(SimpleNamespace(saved_tensors=saved,
+                                              tiling=ctx.tiling), go)
+
+    return (mock.patch.object(mha_mod._MHA, "backward",
+                              staticmethod(spy_mha_back)),
+            mock.patch.object(fs._Composite, "backward",
+                              staticmethod(spy_comp_back)))
 
 
 def timed_steps(state, train_ds, gen, dev, steps, spies=()):
@@ -1671,6 +1699,422 @@ def phase_image_to_3d(dev, model):
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rgba_views(dev, seed: int, n_views: int, size: int, els, azs):
+    """A seeded ``sample_scene`` (4,096 splats) rendered by the port at
+    orbit poses (elevation, azimuth) of radius 1.5: uint8 RGBA [V, S, S,
+    4], straight (not premultiplied) colour and its alpha, as a renderer
+    writes an RGBA file."""
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch.data.synthetic import sample_scene
+    from lgm_tpu_torch.ops.gsplat.api import render_views
+    from lgm_tpu_torch.utils import camera
+
+    g = torch.as_tensor(sample_scene(np.random.default_rng(seed), 4096),
+                        device=dev)
+    poses = np.stack([camera.orbit_camera(e, a, 1.5)
+                      for e, a in zip(els, azs)])
+    cams = camera.build_camera_inputs(poses, 49.1, 0.5, 2.5)
+    tan = float(np.tan(0.5 * np.deg2rad(49.1)))
+    with torch.inference_mode():
+        out = render_views(g[None], torch.as_tensor(
+            cams["cam_view"], device=dev)[None], size, tan,
+            bg_color=torch.zeros(1, n_views, 3, device=dev),
+            with_depth=False, dup=32)
+        alpha = out["alpha"][0].clamp(0, 1)
+        rgb = (out["image"][0] / alpha.clamp_min(1e-6)).clamp(0, 1)
+        rgba = torch.cat([rgb * (alpha > 0), alpha], -1)
+    return (rgba * 255).to(torch.uint8).cpu().numpy()
+
+
+def phase_png_codec(dev):
+    """The port's PNG codec at the disk dataset's size: a seeded 512² RGBA
+    render written with each filter and with the adaptive choice, read
+    back bit for bit; the C++ unfilter against the plain one on each
+    file's first rows (the plain loop takes seconds a view); decode and
+    ``load_views`` (512 and 256) ms a view."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from lgm_tpu_torch.data.decode import load_views
+    from lgm_tpu_torch.io import png
+
+    S = 512
+    views = rgba_views(dev, 3, 8, S, [10.0] * 8, np.arange(8) * 45.0)
+    img = views[0]
+    work = os.path.join(ROOT, "build", "smoke", "png")
+    os.makedirs(work, exist_ok=True)
+    files = {}
+    for name, ftype in [("adaptive", None)] + [(f"filter{f}", f)
+                                               for f in range(5)]:
+        t0 = time.perf_counter()
+        data = png.encode(img, ftype)
+        encode_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(png.decode_rgba(data)[0], img):
+            raise AssertionError(f"png {name}: read back differs")
+        rows = 16
+        # The encoder's one IDAT chunk sits after the 33 bytes of
+        # signature and IHDR, and before IEND's 12.
+        raw = np.frombuffer(zlib.decompress(data[33 + 8:-12 - 4]), np.uint8)
+        part = raw[:rows * (S * 4 + 1)]
+        if not np.array_equal(png.unfilter(part, rows, S * 4, 4),
+                              png.unfilter_plain(part, rows, S * 4, 4)):
+            raise AssertionError(f"png {name}: C++ unfilter != plain")
+        files[name] = dict(bytes=len(data), encode_ms=encode_ms,
+                           filters=np.bincount(raw.reshape(S, -1)[:, 0],
+                                               minlength=5).tolist())
+    data = png.encode(img)
+    decode_ms = median([_timed_ms(lambda: png.decode_rgba(data))
+                        for _ in range(5)])
+    paths = [os.path.join(work, f"{i:03d}.png") for i in range(8)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(png.write, paths, views))
+    load_ms = median([_timed_ms(lambda: load_views(paths, S, 256,
+                                                   n_threads=4)) / 8
+                      for _ in range(3)])
+    emit("png_codec", size=S, files=files, decode_ms_per_view=decode_ms,
+         load_views_ms_per_view=load_ms, load_views_threads=4,
+         unfilter_checked_rows=16, bitwise_roundtrip=True)
+
+
+def _timed_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_disk_dataset(dev):
+    """An LVIS-layout dataset written into ``build/smoke/lvis``: 3 x the
+    batch of scenes (16 train and 8 test at bs 8), 12 views each at the
+    preset's output size (512²), RGBA PNGs by the port's writer, each
+    scene a seeded ``sample_scene`` rendered by the port; input views 1-4
+    at one elevation, 90° apart, the others at random poses; each
+    ``NNN.npy`` stores the elevation negated, as ``LVISDataset._parse_pose``
+    flips it. Cut: the scene count only (the reference trains on tens of
+    thousands of objects)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.io import png
+
+    opt = CONFIGS["big"]
+    n_scenes, n_views, S = 3 * opt.batch_size, 12, opt.output_size
+    root = os.path.join(ROOT, "build", "smoke", "lvis")
+    if os.path.isdir(root):
+        import shutil
+
+        shutil.rmtree(root)
+    t0 = time.perf_counter()
+    jobs, nbytes = [], 0
+    for s in range(n_scenes):
+        rng = np.random.default_rng((11, s))
+        els = rng.uniform(-30.0, 30.0, n_views)
+        azs = rng.uniform(0.0, 360.0, n_views)
+        els[1:5] = rng.uniform(-10.0, 10.0)
+        azs[1:5] = rng.uniform(0.0, 360.0) + 90.0 * np.arange(4)
+        views = rgba_views(dev, 1000 + s, n_views, S, els, azs)
+        scene = os.path.join(root, "00000-09999", f"scene{s:04d}")
+        os.makedirs(scene)
+        for v in range(n_views):
+            np.save(os.path.join(scene, f"{v:03d}.npy"),
+                    {"elevation": -els[v], "azimuth": azs[v],
+                     "radius": 1.5})
+            jobs.append((os.path.join(scene, f"{v:03d}.png"), views[v]))
+    with ThreadPoolExecutor(8) as pool:
+        nbytes = sum(pool.map(lambda job: png.write(*job), jobs))
+    write_s = time.perf_counter() - t0
+    emit("disk_dataset", root=os.path.relpath(root, ROOT), scenes=n_scenes,
+         train_scenes=n_scenes - opt.batch_size,
+         test_scenes=opt.batch_size, views=n_views, size=S,
+         write_s=write_s, png_bytes=nbytes,
+         bytes_per_view=nbytes / (n_scenes * n_views),
+         reduced=["scene count: 24, against the tens of thousands of "
+                  "objects the reference trains on"])
+    return root
+
+
+def phase_loader(dev, root):
+    """The port's loader at LGM big's shapes (bs 8, 8 views, 512 out, 256
+    in) over ``num_workers`` spawned worker processes, pinned, on the
+    training split listed 8 times (one epoch of 16 batches, as a long
+    dataset gives): the first batch (worker start included), then
+    samples/s and batches/s from the first batch to the last; and one
+    sample in this process."""
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.data import provider
+
+    opt = CONFIGS["big"].replace(data_mode="lvis", data_path_rendering=root)
+    ds = provider.LVISDataset(opt, training=True)
+    one_ms = median([_timed_ms(lambda: ds[0]) for _ in range(3)])
+    ds.items = ds.items * 8
+    loader = provider.Loader(ds, opt.batch_size, workers=opt.num_workers,
+                             pin_memory=True)
+    t0 = time.perf_counter()
+    arrivals, shapes = [], None
+    for batch in loader.epoch(0):
+        arrivals.append(time.perf_counter() - t0)
+        shapes = {k: list(v.shape) for k, v in batch.items()}
+    loader.close()
+    n = len(arrivals)
+    rate = (n - 1) / (arrivals[-1] - arrivals[0])
+    emit("loader", batch_size=opt.batch_size, num_views=opt.num_views,
+         output_size=opt.output_size, input_size=opt.input_size,
+         workers=opt.num_workers, batches=n, shapes=shapes,
+         first_batch_s=arrivals[0], total_s=arrivals[-1],
+         batches_per_s=rate, samples_per_s=rate * opt.batch_size,
+         arrivals_s=arrivals, one_sample_ms=one_ms)
+
+
+def phase_train_disk(dev, root):
+    """``train.main`` as a user runs it, in this process: LGM big at its
+    published widths with seeded weights, from the disk dataset (``lvis``,
+    bs 8, 8 views, 8 loader processes), under ``torchrun``'s environment
+    for one rank (NCCL; DistributedDataParallel around the LGM), the
+    preset's U-Net recompute on, 6 steps, the eval and the checkpoint;
+    then ``--zero1 1`` for 2 steps. Per step: the step's time, the time
+    the trainer waited on the loader and the exact launches of K1, K1ᵇ,
+    K2 and K2ᵇ; K1, K1ᵇ and K2ᵇ held against their plain versions on the
+    first step's own inputs."""
+    import contextlib
+    import gc
+    import json
+    import shutil
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import train
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.models.unet import MVAttention
+    from lgm_tpu_torch.ops import mha as mha_mod
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    opt = CONFIGS["big"]
+    counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, fs.composite_fwd,
+                fs.composite_bwd)
+    orig_step, orig_datasets = train.train_step, train.make_datasets
+
+    def run(ws, steps, extra, spies):
+        record = {"step_s": [], "wait_s": [], "launches": []}
+        seen = {}
+
+        def step_spy(state, data, bg):
+            torch.cuda.synchronize()
+            before = [fn.launches for fn in counters]
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                for spy in spies if not record["step_s"] else ():
+                    stack.enter_context(spy)
+                m = orig_step(state, data, bg)
+            torch.cuda.synchronize()
+            record["step_s"].append(time.perf_counter() - t0)
+            record["launches"].append([fn.launches - b for fn, b in
+                                       zip(counters, before)])
+            record.setdefault("loss", []).append(float(m["loss"]))
+            if "backend" not in seen:
+                seen.update(
+                    backend=torch.distributed.get_backend(),
+                    wrapper=type(state.model.lgm).__name__,
+                    sites=sum(isinstance(x, MVAttention)
+                              for x in state.model.modules()),
+                    batch={k: list(v.shape) for k, v in data.items()})
+            return m
+
+        def datasets_spy(*args, **kw):
+            train_ds, test_ds = orig_datasets(*args, **kw)
+            batch = train_ds.batch
+
+            def timed(step):
+                t0 = time.perf_counter()
+                out = batch(step)
+                record["wait_s"].append(time.perf_counter() - t0)
+                return out
+
+            train_ds.batch = timed
+            return train_ds, test_ds
+
+        if os.path.isdir(ws):
+            shutil.rmtree(ws)
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+        argv = ["big", "--device", dev.type, "--data-mode", "lvis",
+                "--data-path-rendering", root, "--workspace", ws,
+                "--total-steps", str(steps), *extra]
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env), \
+                mock.patch.object(train, "train_step", step_spy), \
+                mock.patch.object(train, "make_datasets", datasets_spy):
+            train.main(argv)
+        record["main_s"] = time.perf_counter() - t0
+        gc.collect()
+        record["total_launches"] = {fn.__name__: fn.launches
+                                    for fn in counters}
+        record["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        with open(os.path.join(ws, "metrics.jsonl")) as fh:
+            record["eval"] = [{k[5:]: v for k, v in json.loads(line).items()
+                               if k.startswith("eval/")}
+                              for line in fh if '"eval/' in line]
+        record["ckpt"] = train.latest_checkpoint(ws)
+        record.update(seen)
+        return record
+
+    def expected(rec, steps):
+        """Launches a step, from the code: K1 at every attention site in
+        the forward and again in the U-Net's recompute, K1ᵇ at every site,
+        K2 (with its state) and K2ᵇ on every supervision view (B x V),
+        none for batches (the images come from disk); the eval renders
+        its batch's views once and runs the forward once."""
+        sites, views = rec["sites"], opt.batch_size * opt.num_views
+        per_step = [sites * (2 if opt.unet_remat else 1), sites, views,
+                    views]
+        total = {"mha_fwd": steps * per_step[0] + sites,
+                 "mha_bwd": steps * per_step[1],
+                 "composite_fwd": steps * per_step[2] + views,
+                 "composite_bwd": steps * per_step[3]}
+        return per_step, total
+
+    captured = {}
+    ws = os.path.join(ROOT, "build", "smoke", "train_disk")
+    main_rec = run(ws, 6, [], backward_spies(captured))
+    per_step, total = expected(main_rec, 6)
+    if (any(l != per_step for l in main_rec["launches"])
+            or main_rec["total_launches"] != total):
+        raise AssertionError(f"train_disk launches {main_rec['launches']} "
+                             f"(total {main_rec['total_launches']}), "
+                             f"expected {per_step} a step, {total}")
+    if not (main_rec["backend"] == ("nccl" if dev.type == "cuda" else
+                                    "gloo")
+            and main_rec["wrapper"] == "DistributedDataParallel"):
+        raise AssertionError(f"process group {main_rec['backend']}, "
+                             f"wrapper {main_rec['wrapper']}")
+    evals = main_rec["eval"]
+    if not (np.isfinite(main_rec["loss"]).all() and len(evals) == 1
+            and np.isfinite(list(evals[0].values())).all()
+            and main_rec["ckpt"].endswith("ckpt_6")):
+        raise AssertionError(f"losses {main_rec['loss']}, evals {evals}, "
+                             f"checkpoint {main_rec['ckpt']}")
+
+    # K1, K1ᵇ and K2ᵇ on the first step's own inputs.
+    q, k, v, o, do, scale, lse = captured["k1"]
+    with torch.no_grad():
+        o2, lse2, k1_err, _, k1_lse_err, _ = check_k1(q, k, v, scale,
+                                                      "train_disk")
+        if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+            raise AssertionError("K1 on the disk step's inputs differs from "
+                                 "the step's own o or lse")
+        k1b_err, k1b_tol = check_k1b(q, k, v, o, do, scale, lse,
+                                     "train_disk")
+        params, counts, fo, go, k2_state, th, tw, tiles_x = captured["k2"]
+        k2b_err, k2b_rel = check_k2b(params, counts, fo, go, k2_state, th,
+                                     tw, tiles_x, "train_disk")
+    k1_shape = list(q.shape)
+    captured.clear()
+    del q, k, v, o, do, lse, o2, lse2, params, counts, fo, go, k2_state
+    torch.cuda.empty_cache()
+
+    warm = median(main_rec["step_s"][1:])
+    emit("train_disk", preset="big", batch_size=opt.batch_size,
+         num_views=opt.num_views, data="lvis", workers=opt.num_workers,
+         unet_remat=opt.unet_remat, process_group=main_rec["backend"],
+         wrapper=main_rec["wrapper"], batch_shapes=main_rec["batch"],
+         steps_s=main_rec["step_s"], step_warm_s=warm,
+         train_steps_per_s=1.0 / warm, wait_s=main_rec["wait_s"],
+         wait_warm_s=median(main_rec["wait_s"][1:]),
+         loop_steps_per_s=6 / sum(main_rec["step_s"] + main_rec["wait_s"]),
+         main_s=main_rec["main_s"], loss=main_rec["loss"],
+         eval=evals[0], checkpoint=os.path.relpath(main_rec["ckpt"], ROOT),
+         checkpoint_gb=os.path.getsize(main_rec["ckpt"]) / 2**30,
+         peak_mem_gb=main_rec["peak_mem_gb"],
+         launches_per_step=dict(zip(("mha_fwd", "mha_bwd", "composite_fwd",
+                                     "composite_bwd"), per_step)),
+         launches=main_rec["total_launches"], k1_shape=k1_shape,
+         k1_max_abs_err=k1_err, k1_lse_max_abs_err=k1_lse_err,
+         k1_bwd_max_abs_err=k1b_err, k1_bwd_tol=k1b_tol,
+         k2_bwd_max_abs_err=k2b_err, k2_bwd_max_row_rel_err=k2b_rel)
+
+    zws = os.path.join(ROOT, "build", "smoke", "train_disk_zero1")
+    zero = run(zws, 2, ["--zero1", "1"], ())
+    per_step, total = expected(zero, 2)
+    if (any(l != per_step for l in zero["launches"])
+            or zero["total_launches"] != total
+            or not np.isfinite(zero["loss"]).all()):
+        raise AssertionError(f"train_disk zero1: launches "
+                             f"{zero['launches']}, losses {zero['loss']}")
+    emit("train_disk_zero1", steps_s=zero["step_s"], wait_s=zero["wait_s"],
+         loss=zero["loss"], eval=zero["eval"][0],
+         peak_mem_gb=zero["peak_mem_gb"], launches=zero["total_launches"],
+         checkpoint_gb=os.path.getsize(zero["ckpt"]) / 2**30)
+    shutil.rmtree(zws)
+    return main_rec["total_launches"], main_rec["ckpt"]
+
+
+def phase_infer_cli(dev, root, ckpt):
+    """``python -m lgm_tpu_torch.infer big --mv-images`` as a subprocess on
+    the card: four input views (1-4) of the first test scene written as
+    PNGs, the weights ``train_disk``'s checkpoint; it must exit 0 and
+    write the ``.ply`` and the orbit."""
+    import glob
+    import sys
+
+    import numpy as np
+
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.io import png
+    from lgm_tpu_torch.io.ply import load_ply
+
+    scenes = sorted(glob.glob(os.path.join(root, "00000-09999", "*")))
+    scene = scenes[-CONFIGS["big"].batch_size]
+    ws = os.path.join(ROOT, "build", "smoke", "infer_cli")
+    os.makedirs(ws, exist_ok=True)
+    paths = []
+    for i in range(4):
+        paths.append(os.path.join(ws, f"v{i}.png"))
+        png.write(paths[-1], png.read_rgba(os.path.join(
+            scene, f"{i + 1:03d}.png"))[0])
+    cmd = [sys.executable, "-m", "lgm_tpu_torch.infer", "big",
+           "--mv-images", *paths, "--resume", ckpt, "--workspace", ws,
+           "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"infer CLI exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    ply = os.path.join(ws, "v0.ply")
+    video = [f for f in os.listdir(ws) if f.startswith("v0.")
+             and f.endswith((".mp4", ".frames.npy"))]
+    g = load_ply(ply)
+    if not (len(g) > 0 and np.isfinite(g).all() and video):
+        raise AssertionError(f"infer CLI wrote {os.listdir(ws)}")
+    frames = None
+    if video[0].endswith(".npy"):
+        frames = list(np.load(os.path.join(ws, video[0]),
+                              mmap_mode="r").shape)
+    emit("infer_cli", scene=os.path.relpath(scene, ROOT), wall_s=wall_s,
+         ply=os.path.relpath(ply, ROOT), ply_gaussians=len(g),
+         video=video[0], frames=frames,
+         checkpoint=os.path.relpath(ckpt, ROOT))
+    os.remove(ckpt)
+
+
 def median(xs):
     """The middle value (the upper one of an even count)."""
     return sorted(xs)[len(xs) // 2]
@@ -1747,6 +2191,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_v1_image(dev)
     phase_nano(dev)
+    torch.cuda.empty_cache()
+    phase_png_codec(dev)
+    root = phase_disk_dataset(dev)
+    phase_loader(dev, root)
+    disk_launches, ckpt = phase_train_disk(dev, root)
+    torch.cuda.empty_cache()
+    phase_infer_cli(dev, root, ckpt)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1790,6 +2241,7 @@ def main() -> int:
     # with the other two paths.
     for kernel in kernels[:4]:
         kernel["train_v1_launches"] = v1_launches[kernel["name"]]
+        kernel["train_disk_launches"] = disk_launches[kernel["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,7 +4,8 @@ A second package beside ``lgm_tpu`` (the JAX/TPU reference, which it never
 imports): the same modules under the same names, in PyTorch, with a kernel
 written by hand in CUDA C++ for ``sm_90a`` wherever ``lgm_tpu`` wrote a
 Pallas kernel. It covers LGM inference from four views or from one image
-(the MVDream / ImageDream front-end) and single-GPU training:
+(the MVDream / ImageDream front-end) and training on synthetic or disk
+data, on one GPU or several:
 
 - ``config``         Options + presets (copy of ``lgm_tpu.config``)
 - ``utils.camera``   orbit poses, Plücker rays, rasterizer cameras (numpy)
@@ -15,7 +16,13 @@ Pallas kernel. It covers LGM inference from four views or from one image
                      its joint self-attention), VAE, CLIP towers and BPE
                      tokenizer, DDIM
 - ``io.ply``         PLY import/export
+- ``io.png``         PNG reader and writer (scanline unfilter in host C++,
+                     ``data/csrc/png_unfilter.cpp``)
 - ``data.synthetic`` seeded scenes and poses, views rendered on the device
+- ``data.decode``    PNG views -> white-background composite, two resizes
+- ``data.provider``  Objaverse / LVIS datasets, the worker-process loader
+- ``utils.augment``  grid distortion and camera jitter (numpy)
+- ``parallel.dist``  dp x vp worlds under torchrun, ZeRO-1 slices
 - ``models``         the multi-view U-Net, the LGM forward and its loss
                      graph, LPIPS (NCHW)
 - ``ops.mha``        cross-view attention, kernels K1 and K1ᵇ
@@ -26,7 +33,7 @@ Pallas kernel. It covers LGM inference from four views or from one image
                      (LGM and the diffusion pipeline)
 - ``infer``          one image or four views -> Gaussians -> .ply + orbit
                      frames
-- ``train``          AdamW training loop, checkpoints, resume
+- ``train``          AdamW training loop (DDP, ZeRO-1), checkpoints, resume
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 On a CPU tensor every kernel wrapper takes its plain PyTorch version; on

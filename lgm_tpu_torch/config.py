@@ -3,9 +3,7 @@
 The package's own copy of ``lgm_tpu/config.py`` (the port imports nothing
 of the JAX package): the same frozen ``Options`` dataclass, the same
 presets (ref: core/options.py:6-123) and the same argparse CLI pattern,
-so the two packages read one preset identically. Fields that only the
-TPU trainer reads (``unet_remat``, ``vp``, ``zero1``) are kept so a preset
-means the same thing in both packages.
+so the two packages read one preset identically.
 """
 
 from __future__ import annotations
@@ -81,10 +79,9 @@ class Options:
     unet_remat: bool = True
 
     # --- parallelism -----------------------------------------------------
-    # View-parallel mesh axis: devices form a (dp, vp) mesh with
-    # dp = device_count / vp. Supervision views shard over vp; the U-Net
-    # runs with its (scene, input-view) axis sharded over dp x vp and the
-    # per-view Gaussian slices all-gather along vp before rasterization.
+    # View-parallel axis: the ranks form a (dp, vp) grid with
+    # dp = world size / vp (parallel/dist.py). Supervision views shard over
+    # vp; each vp rank runs the U-Net on all input views of its scenes.
     vp: int = 1
     # ZeRO-1: shard large optimizer-state leaves (Adam mu/nu) over dp.
     zero1: bool = False

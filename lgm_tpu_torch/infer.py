@@ -13,10 +13,13 @@ Then the LGM forward -> ``.ply`` -> a 180-frame orbit at the preset's
 output size (flatsort, dup 32, with depth; kernel K2 per frame on the
 card; K1 in the U-Nets).
 
-``process`` writes the orbit as mp4 through OpenCV where ``cv2`` imports;
-otherwise the frames go to ``<stem>.frames.npy`` (uint8 [F, S, S, 3]),
-and the path written is printed either way. Reading image files needs
-``cv2``; ``image_to_views`` and ``process`` take arrays.
+Input files are PNGs, read by the port's own reader (``io/png.py``) with
+``cv2.imread(..., IMREAD_UNCHANGED)``'s pixels, so the CLI runs where
+``cv2`` is absent (the card host); any other format raises an error that
+names it (lgm_tpu reads JPEG through ``cv2``). ``image_to_views`` and
+``process`` take arrays. ``process`` writes the orbit as mp4 through OpenCV
+where ``cv2`` imports; otherwise the frames go to ``<stem>.frames.npy``
+(uint8 [F, S, S, 3]), and the path written is printed either way.
 
 Run: python -m lgm_tpu_torch.infer big --mv-images a.png b.png c.png d.png
          --workspace out [--resume model.safetensors] [--device cuda]
@@ -36,6 +39,7 @@ import torch
 
 from lgm_tpu_torch.config import CONFIGS, Options
 from lgm_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
+from lgm_tpu_torch.io import png
 from lgm_tpu_torch.io.ply import save_ply
 from lgm_tpu_torch.models.lgm import LGM
 from lgm_tpu_torch.models.unet import use_full_float32
@@ -57,13 +61,9 @@ def resolve_device(device: str) -> torch.device:
 
 
 def _load_rgba(path: str, size: int) -> np.ndarray:
-    """[size, size, 3] float RGB on white bg (RGBA composited over white)."""
-    import cv2
-
-    img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(f"cannot read {path}")
-    img = img.astype(np.float32) / 255.0
+    """[size, size, 3] float RGB on white bg (RGBA composited over white),
+    resized as ``cv2.INTER_AREA`` does."""
+    img = png.imread(path).astype(np.float32) / 255.0
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     if img.shape[-1] == 4:
@@ -71,7 +71,7 @@ def _load_rgba(path: str, size: int) -> np.ndarray:
         img = rgb * a + (1 - a)
     else:
         img = img[..., [2, 1, 0]]
-    return cv2.resize(img, (size, size), interpolation=cv2.INTER_AREA)
+    return resize(img, (size, size), "area")
 
 
 def remove_background(path: str) -> Optional[np.ndarray]:
@@ -81,9 +81,10 @@ def remove_background(path: str) -> Optional[np.ndarray]:
         import rembg
     except ImportError:
         return None
-    import cv2
-
-    out = rembg.remove(cv2.imread(path), session=rembg.new_session())
+    bgr = png.imread(path)
+    if bgr.ndim == 2:
+        bgr = np.stack([bgr] * 3, axis=-1)
+    out = rembg.remove(bgr[..., :3], session=rembg.new_session())
     return out.astype(np.float32) / 255.0
 
 
@@ -277,12 +278,7 @@ def main(argv=None):
 
         image = remove_background(ns.image)
         if image is None:
-            import cv2
-
-            raw = cv2.imread(ns.image, cv2.IMREAD_UNCHANGED)
-            if raw is None:
-                raise FileNotFoundError(f"cannot read {ns.image}")
-            image = raw.astype(np.float32) / 255.0
+            image = png.imread(ns.image).astype(np.float32) / 255.0
         pipe = MVDreamPipeline.from_pretrained(ns.diffusion_ckpt,
                                                device=ns.device)
         mv = image_to_views(pipe, image, opt, ns.elevation)

@@ -8,6 +8,9 @@ hash of the source, the ``*.cuh`` headers beside it and the flags, and
 loaded with ``ctypes``. Each C entry
 returns ``cudaGetLastError()`` after its launch; ``check`` raises when it
 is not 0. A failed build raises: nothing falls back to a plain version.
+
+``build_host`` does the same for host C++ (``**/csrc/*.cpp``, no CUDA)
+with the host compiler, into ``build/host/``.
 """
 
 from __future__ import annotations
@@ -99,6 +102,38 @@ def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
             lib.kernel_error_name.restype = ctypes.c_char_p
             _libs[name] = lib
         return _libs[name]
+
+
+HOST_BUILD_DIR = PACKAGE_DIR.parent / "build" / "host"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
+
+def host_target(src: Path) -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    digest.update(src.read_bytes())
+    return HOST_BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(src: Path) -> Path:
+    """Compile a host C++ source (plain C interface, no CUDA) with the
+    host compiler into ``build/host/<name>-<hash>.so``, keyed by a hash of
+    the source and the flags, unless it is built already; returns the
+    library. A failed build raises."""
+    so = host_target(src)
+    if so.exists():
+        return so
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"no host C++ compiler to build {src.name}")
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host build of {src.name} failed (exit "
+                           f"{proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
 
 
 def short_name(mangled: str) -> str:

@@ -1,0 +1,205 @@
+"""Multi-GPU training: a world of dp x vp ranks over ``torch.distributed``.
+
+Port of ``lgm_tpu/parallel/mesh.py`` (ref: main.py:18-22,82-84, the
+reference's Accelerate DDP over NCCL; SURVEY.md §5.8):
+
+- ``init_world`` (``make_mesh``): the world ``torchrun`` describes in its
+  environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+  ``MASTER_PORT``), NCCL on CUDA and gloo on the CPU, laid out as lgm_tpu's
+  (dp, vp) device grid: rank = dp_rank * vp + vp_rank, with a process
+  group along each axis. Without ``WORLD_SIZE`` it is one process and no
+  group.
+- ``shard_batch``: the rank's part of a global batch by lgm_tpu's rule:
+  ``input`` and every array of fewer than 2 dims split over dp on axis 0
+  only, every other array over dp on axis 0 and over vp on axis 1, the
+  view axis. Every vp rank of a scene holds all its input views and runs
+  the U-Net on them, then renders and takes the loss on its own slice of
+  the supervision views, so lgm_tpu's ``gather_gaussians`` all-gather is
+  the identity here and the results are lgm_tpu's (the view-sharded U-Net
+  of ``constrain_views``, which saves memory, is not ported).
+- ``replicate`` is DistributedDataParallel's initial broadcast, in the
+  trainer.
+- ZeRO-1 (``shard_opt_state``): ``zero1_axis`` picks each large leaf's
+  slice of the optimizer state, ``local_slice`` / ``gather_slices`` cut
+  and restore it over dp (used by ``train.Optimizer``).
+- ``reduce_metrics``: logged scalars as a one-process run computes them.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+# Optimizer-state leaves smaller than this stay replicated under ZeRO-1
+# (lgm_tpu's shard_opt_state min_size).
+ZERO1_MIN_SIZE = 2 ** 16
+
+
+@dataclass
+class World:
+    """This process's place in a (dp, vp) grid of ranks."""
+
+    rank: int = 0
+    size: int = 1
+    vp: int = 1
+    device: torch.device = torch.device("cpu")
+    dp_group: Optional[object] = None
+    vp_group: Optional[object] = None
+    distributed: bool = False
+
+    @property
+    def dp(self) -> int:
+        return self.size // self.vp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.vp
+
+    @property
+    def vp_rank(self) -> int:
+        return self.rank % self.vp
+
+    @property
+    def is_lead(self) -> bool:
+        return self.rank == 0
+
+
+def init_world(vp: int, device: torch.device) -> World:
+    """The world ``torchrun`` launched this process into (a process group
+    over NCCL for a CUDA ``device``, gloo otherwise), or one process when
+    ``WORLD_SIZE`` is unset. The world size must divide by ``vp``."""
+    if "WORLD_SIZE" not in os.environ:
+        if vp != 1:
+            raise ValueError(f"vp={vp} needs a world of a multiple of {vp} "
+                             "processes (launch with torchrun)")
+        return World(device=device)
+    size, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    if size % vp:
+        raise ValueError(f"world size {size} is not a multiple of vp={vp}")
+    cuda = device.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", rank=rank,
+                            world_size=size,
+                            device_id=device if cuda else None)
+    world = World(rank=rank, size=size, vp=vp, device=device,
+                  distributed=True)
+    # Every rank creates every group, in the same order.
+    for v in range(vp):
+        group = dist.new_group([d * vp + v for d in range(world.dp)])
+        if world.vp_rank == v:
+            world.dp_group = group
+    for d in range(world.dp):
+        group = dist.new_group([d * vp + v for v in range(vp)])
+        if world.dp_rank == d:
+            world.vp_group = group
+    return world
+
+
+def close(world: World) -> None:
+    if world.distributed:
+        dist.destroy_process_group()
+
+
+def barrier(world: World) -> None:
+    if world.distributed:
+        dist.barrier()
+
+
+def _part(x: torch.Tensor, axis: int, parts: int, index: int):
+    n = x.shape[axis]
+    if n % parts:
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split "
+                         f"into {parts}")
+    return x.narrow(axis, index * (n // parts), n // parts)
+
+
+def shard_views(world: World, batch: Dict[str, torch.Tensor]) -> Dict:
+    """The rank's vp slice of the view axis of every per-view array."""
+    if world.vp == 1:
+        return batch
+    return {k: v if k == "input" or v.ndim < 2 else
+            _part(v, 1, world.vp, world.vp_rank).contiguous()
+            for k, v in batch.items()}
+
+
+def shard_batch(world: World, batch: Dict[str, torch.Tensor]) -> Dict:
+    """The rank's part of a global batch: axis 0 over dp, then the view
+    axis over vp (``shard_views``)."""
+    if world.size == 1:
+        return batch
+    return shard_views(world, {k: _part(v, 0, world.dp, world.dp_rank)
+                               for k, v in batch.items()})
+
+
+def broadcast_scenes(world: World, batch: Dict[str, torch.Tensor]) -> Dict:
+    """The first vp rank's batch on every vp rank of its scenes (in
+    place): training samples draw their views and augmentations from
+    fresh entropy, so the ranks that share scenes take one copy."""
+    if world.vp > 1:
+        src = world.dp_rank * world.vp
+        for key in sorted(batch):
+            dist.broadcast(batch[key], src, group=world.vp_group)
+    return batch
+
+
+def any_rank(world: World, flag: bool) -> bool:
+    """Whether ``flag`` is set on any rank."""
+    if not world.distributed:
+        return flag
+    t = torch.tensor([float(flag)], device=world.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def reduce_metrics(world: World, metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, float]:
+    """Scalar metrics of the rank's slice -> their value over the global
+    batch, as one process computes it: every rank holds an equal slice, so
+    a mean is the mean over ranks; ``psnr`` is -10 log10(mse), not linear
+    in the mse, so the mse (10^(-psnr / 10)) is averaged and turned back.
+    One process: the values as they are."""
+    out = {k: float(v) for k, v in metrics.items()}
+    if world.size == 1:
+        return out
+    keys = sorted(out)
+    vals = [10.0 ** (-out[k] / 10.0) if k == "psnr" else out[k]
+            for k in keys]
+    t = torch.tensor(vals, dtype=torch.float64, device=world.device)
+    dist.all_reduce(t)
+    out = dict(zip(keys, (t / world.size).tolist()))
+    if "psnr" in out:
+        out["psnr"] = -10.0 * math.log10(out["psnr"])
+    return out
+
+
+def zero1_axis(shape, dp: int) -> Optional[int]:
+    """The axis a leaf of ``shape`` shards over dp under ZeRO-1, or None
+    (replicated): leaves of at least ``ZERO1_MIN_SIZE`` elements, on their
+    largest dp-divisible axis (the first such)."""
+    if math.prod(shape) < ZERO1_MIN_SIZE:
+        return None
+    divisible = [i for i, s in enumerate(shape) if s % dp == 0]
+    if not divisible:
+        return None
+    return max(divisible, key=lambda i: shape[i])
+
+
+def local_slice(x: torch.Tensor, axis: int, world: World) -> torch.Tensor:
+    """This dp rank's slice of ``x`` along ``axis`` (a view)."""
+    return _part(x, axis, world.dp, world.dp_rank)
+
+
+def gather_slices(local: torch.Tensor, axis: int, world: World
+                  ) -> torch.Tensor:
+    """The dp ranks' slices along ``axis`` joined into the full tensor
+    (an all-gather over the rank's dp group)."""
+    part = local.movedim(axis, 0).contiguous()
+    if world.dp == 1:
+        return part.movedim(0, axis)
+    full = part.new_empty((world.dp * part.shape[0],) + part.shape[1:])
+    dist.all_gather_into_tensor(full, part, group=world.dp_group)
+    return full.movedim(0, axis)

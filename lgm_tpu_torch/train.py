@@ -1,8 +1,9 @@
-"""Training entry point: LGM on one GPU with synthetic data.
+"""Training entry point: LGM on one GPU or several, on synthetic or disk
+data.
 
-Port of ``lgm_tpu/train.py`` (ref: main.py:13-185) for a single device:
-AdamW with the reference hyperparameters (lr 4e-4, weight decay 0.05,
-betas 0.9/0.95, main.py:73-74) under optax's cosine one-cycle schedule
+Port of ``lgm_tpu/train.py`` (ref: main.py:13-185): AdamW with the
+reference hyperparameters (lr 4e-4, weight decay 0.05, betas 0.9/0.95,
+main.py:73-74) under optax's cosine one-cycle schedule
 with warmup (main.py:75-79), global-norm clipping at 1.0 (main.py:105-106),
 gradient accumulation as ``optax.MultiSteps`` and bf16 compute. The
 optimizer is written out rather than taken from ``torch.optim`` because
@@ -29,8 +30,22 @@ K2ᵇ) for ``auto``/``pallas``, the v1 tiled rasterizer (K3, K3ᵇ) for
 Scalars go to ``<workspace>/metrics.jsonl``, and to TensorBoard under
 ``<workspace>/tb`` where ``torch.utils.tensorboard`` imports.
 
-Not yet ported: ``data_mode`` other than ``synthetic``, ``vp > 1`` and
-``zero1`` raise ``NotImplementedError``.
+``--data-mode objaverse|lvis`` (with ``--data-path`` /
+``--data-path-rendering``) trains on renderings read from disk
+(``data/provider.py``: ``--num-workers`` loader processes, batches copied
+to the device without blocking); ``synthetic`` renders its scenes.
+
+Several processes (``python -m torch.distributed.run --nproc_per_node N
+-m lgm_tpu_torch.train ...``; NCCL on ``cuda:LOCAL_RANK``, gloo with
+``--device cpu``) form a (dp, vp) world (``parallel/dist.py``): each rank
+takes its part of the global batch of ``batch_size`` scenes, the LGM runs
+under DistributedDataParallel (LPIPS, frozen, outside it), ``--zero1 1``
+shards the optimizer state over dp, every rank draws the same background
+colours, and logged scalars and eval means are reduced over the world, so
+they are a one-process run's. Rank 0 logs, writes image grids and writes
+the checkpoint (full state: ZeRO-1 shards are gathered first, so one
+process loads it). A preemption signal on any rank stops all of them
+after the same step.
 """
 
 from __future__ import annotations
@@ -52,6 +67,7 @@ from lgm_tpu_torch.infer import resolve_device
 from lgm_tpu_torch.models.lgm import LGMWithLoss
 from lgm_tpu_torch.models.lpips import load_lpips_params
 from lgm_tpu_torch.models.unet import use_full_float32
+from lgm_tpu_torch.parallel import dist
 
 B1, B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.05
 B1_BF16 = float(torch.tensor(B1, dtype=torch.bfloat16))  # 0.8984375
@@ -84,7 +100,7 @@ class Optimizer:
     """optax.chain(clip_by_global_norm(clip), adamw(schedule, b1=0.9,
     b2=0.95, eps=1e-8, weight_decay=0.05, mu_dtype=bf16)), wrapped in
     MultiSteps when ``gradient_accumulation_steps > 1``; over ``params``,
-    updated in place by ``update(grads)``."""
+    updated in place by ``update(grads)``. After ``shard(world)``, ZeRO-1."""
 
     def __init__(self, params: List[torch.nn.Parameter], opt: Options):
         self.params = list(params)
@@ -97,6 +113,23 @@ class Optimizer:
         self.mini_step = 0
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if self.k_steps > 1 else None)
+        self.world: Optional[dist.World] = None
+        self.axes: List[Optional[int]] = [None] * len(self.params)
+
+    def shard(self, world: dist.World) -> None:
+        """ZeRO-1 over dp (lgm_tpu's ``shard_opt_state``): each leaf of at
+        least 2^16 elements keeps Adam's moments for its dp rank's slice
+        along ``dist.zero1_axis``; the update runs on that slice of the
+        gradient (all-reduced in full, so the clip reads the global norm)
+        and an all-gather over dp restores the parameter. Smaller leaves
+        stay replicated; the accumulator of MultiSteps stays whole."""
+        self.world = world
+        for i, p in enumerate(self.params):
+            axis = dist.zero1_axis(tuple(p.shape), world.dp)
+            self.axes[i] = axis
+            if axis is not None:
+                self.mu[i] = dist.local_slice(self.mu[i], axis, world).clone()
+                self.nu[i] = dist.local_slice(self.nu[i], axis, world).clone()
 
     def update(self, grads: List[torch.Tensor],
                g_norm: Optional[torch.Tensor] = None) -> None:
@@ -128,8 +161,13 @@ class Optimizer:
         # Bias corrections 1 - b**count in f32, as optax computes them.
         bc1 = 1 - torch.tensor(B1, device=dev) ** self.count
         bc2 = 1 - torch.tensor(B2, device=dev) ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu, axis in zip(self.params, grads, self.mu, self.nu,
+                                      self.axes):
             g = torch.where(keep, g, (g / g_norm) * max_norm)
+            full = p
+            if axis is not None:   # ZeRO-1: this rank's slice
+                p = dist.local_slice(p, axis, self.world)
+                g = dist.local_slice(g, axis, self.world)
             # optax's b1 * mu under jit (ROADMAP trap C4): the weak-typed
             # b1 takes mu's dtype (bf16(0.9) = 0.8984375), XLA forms the
             # product and the sum in f32, and mu is rounded to bf16 once,
@@ -140,19 +178,33 @@ class Optimizer:
             u = u + WEIGHT_DECAY * p
             p.add_(u * (-lr))
             mu.copy_(mu_f)
+            if axis is not None:
+                full.copy_(dist.gather_slices(p, axis, self.world))
+
+    def _full(self, name: str) -> List[torch.Tensor]:
+        """Adam's ``mu`` or ``nu``, ZeRO-1 slices gathered (collective)."""
+        return [t if axis is None else dist.gather_slices(t, axis, self.world)
+                for t, axis in zip(getattr(self, name), self.axes)]
 
     def state_dict(self) -> Dict:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu,
-                "mini_step": self.mini_step, "acc": self.acc}
+        """The full state, as one process holds it: under ZeRO-1 every
+        rank must call it (the slices are gathered)."""
+        return {"count": self.count, "mu": self._full("mu"),
+                "nu": self._full("nu"), "mini_step": self.mini_step,
+                "acc": self.acc}
 
     def load_state_dict(self, sd: Dict) -> None:
+        """Load a full state (under ZeRO-1, each rank keeps its slices)."""
         for name in ("mu", "nu") + (("acc",) if self.acc is not None else ()):
-            for dst, src in zip(getattr(self, name), sd[name]):
-                if dst.shape != src.shape:
+            axes = self.axes if name != "acc" else [None] * len(self.params)
+            for dst, src, p, axis in zip(getattr(self, name), sd[name],
+                                         self.params, axes):
+                if p.shape != src.shape:
                     raise ValueError(f"optimizer {name}: shape "
                                      f"{tuple(src.shape)} != "
-                                     f"{tuple(dst.shape)}")
-                dst.copy_(src)
+                                     f"{tuple(p.shape)}")
+                dst.copy_(src if axis is None else
+                          dist.local_slice(src, axis, self.world))
         self.count = int(sd["count"])
         self.mini_step = int(sd["mini_step"])
 
@@ -179,13 +231,7 @@ def create_state(opt: Options, device="cuda", backend: Optional[str] = None,
                  seed: int = 42) -> TrainState:
     """The model in the preset's compute dtype with weights initialised
     under ``seed`` (LPIPS from ``opt.lpips_weights`` when given), on
-    ``device``, and its optimizer."""
-    for what, bad in (("data_mode", opt.data_mode != "synthetic"),
-                      ("vp", opt.vp > 1), ("zero1", opt.zero1)):
-        if bad:
-            raise NotImplementedError(
-                f"{what}={getattr(opt, what)!r} is not ported yet (disk "
-                "datasets and multi-GPU training come in later slices)")
+    ``device``, and its optimizer (``main`` shards it under ``zero1``)."""
     dev = resolve_device(device) if isinstance(device, str) else device
     use_full_float32()
     dtype = torch.bfloat16 if opt.mixed_precision == "bf16" else torch.float32
@@ -241,13 +287,28 @@ def eval_step(state: TrainState, data: Dict) -> Dict[str, torch.Tensor]:
             "images_pred": out["images_pred"]}
 
 
-def save_checkpoint(workspace: str, state: TrainState, step: int) -> str:
+def model_state_dict(model: LGMWithLoss) -> Dict[str, torch.Tensor]:
+    """The model's state dict under a one-process run's keys (the
+    ``module.`` of a DistributedDataParallel around ``lgm`` dropped)."""
+    return {("lgm." + k[len("lgm.module."):]
+             if k.startswith("lgm.module.") else k): v
+            for k, v in model.state_dict().items()}
+
+
+def save_checkpoint(workspace: str, state: TrainState, step: int,
+                    world: Optional[dist.World] = None) -> str:
+    """``<workspace>/ckpt_{step}``: parameters, the full optimizer state
+    and the step. In a world of several ranks every rank calls it (ZeRO-1
+    slices are gathered) and rank 0 writes."""
     path = os.path.abspath(os.path.join(workspace, f"ckpt_{step}"))
-    tmp = path + ".tmp"
-    torch.save({"params": state.model.state_dict(),
-                "opt_state": state.optimizer.state_dict(), "step": step},
-               tmp)
-    os.replace(tmp, path)
+    ckpt = {"params": model_state_dict(state.model),
+            "opt_state": state.optimizer.state_dict(), "step": step}
+    if world is None or world.is_lead:
+        tmp = path + ".tmp"
+        torch.save(ckpt, tmp)
+        os.replace(tmp, path)
+    if world is not None:
+        dist.barrier(world)
     return path
 
 
@@ -283,11 +344,83 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     return state
 
 
-def make_datasets(opt: Options, device):
-    from lgm_tpu_torch.data.synthetic import SyntheticDataset
+class _RankBatches:
+    """A dataset's ``batch(step)`` as the rank's part (``dist.shard_batch``)
+    of the global batch every rank makes alike (synthetic data)."""
 
-    return (SyntheticDataset(opt, training=True, device=device),
-            SyntheticDataset(opt, training=False, length=4, device=device))
+    def __init__(self, ds, world: dist.World):
+        self.ds, self.world = ds, world
+
+    def __len__(self):
+        return len(self.ds)
+
+    def batch(self, step: int) -> Dict:
+        return dist.shard_batch(self.world, _batch_data(self.ds.batch(step)))
+
+
+class DiskBatches:
+    """A disk dataset behind the synthetic ``batch(step)`` API
+    (``lgm_tpu/train.py``'s ``_Adapter``): successive batches of the
+    ``Loader``, epoch after epoch (for training one stream, so the workers
+    prefetch across an epoch's end), each the rank's dp slice of the
+    global batch, copied to ``device`` without blocking (from pinned
+    memory on CUDA); the vp ranks of a scene take the first one's copy
+    (``dist.broadcast_scenes``) and keep their views."""
+
+    def __init__(self, ds, opt: Options, device: torch.device,
+                 world: dist.World, training: bool):
+        from lgm_tpu_torch.data.provider import Loader
+
+        self.loader = Loader(ds, opt.batch_size, shuffle=training,
+                             workers=opt.num_workers, rank=world.dp_rank,
+                             ranks=world.dp,
+                             pin_memory=device.type == "cuda",
+                             endless=training)
+        self.device, self.world = device, world
+        self._iter = None
+        self._epoch = 0
+
+    def __len__(self):
+        return max(len(self.loader), 1)
+
+    def batch(self, step: int) -> Dict:
+        if self._iter is None:
+            self._iter = self.loader.epoch(self._epoch)
+        try:
+            batch = next(self._iter)
+        except StopIteration:
+            self._epoch += 1
+            self._iter = self.loader.epoch(self._epoch)
+            batch = next(self._iter)
+        batch = {k: v.to(self.device, non_blocking=True)
+                 for k, v in batch.items()}
+        return dist.shard_views(self.world,
+                                dist.broadcast_scenes(self.world, batch))
+
+    def close(self) -> None:
+        self.loader.close()
+
+
+def make_datasets(opt: Options, device, world: Optional[dist.World] = None):
+    """Train and test batches by ``data_mode``: ``synthetic`` (rendered on
+    ``device``), ``objaverse`` or ``lvis`` (from disk); in a world of
+    several ranks, each rank's part."""
+    device = torch.device(device)
+    world = world or dist.World(device=device)
+    if opt.data_mode == "synthetic":
+        from lgm_tpu_torch.data.synthetic import SyntheticDataset
+
+        sets = (SyntheticDataset(opt, training=True, device=device),
+                SyntheticDataset(opt, training=False, length=4,
+                                 device=device))
+        if world.size == 1:
+            return sets
+        return tuple(_RankBatches(ds, world) for ds in sets)
+    from lgm_tpu_torch.data.provider import LVISDataset, ObjaverseDataset
+
+    cls = {"objaverse": ObjaverseDataset, "lvis": LVISDataset}[opt.data_mode]
+    return (DiskBatches(cls(opt, training=True), opt, device, world, True),
+            DiskBatches(cls(opt, training=False), opt, device, world, False))
 
 
 def _batch_data(batch: Dict) -> Dict:
@@ -295,48 +428,85 @@ def _batch_data(batch: Dict) -> Dict:
 
 
 def main(argv=None):
+    """The trainer's CLI (see the module docstring). Returns the eval
+    means under ``--eval-only``."""
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", type=str, default="cuda",
                      help="cuda (default) or cpu")
     ns, rest = pre.parse_known_args(argv)
     opt = parse_cli(rest)
     dev = resolve_device(ns.device)
-    if opt.debug_nans:
-        # The nearest counterpart of jax_debug_nans: autograd raises at
-        # the backward op that produced a NaN.
-        torch.autograd.set_detect_anomaly(True)
-    os.makedirs(opt.workspace, exist_ok=True)
-    print(f"device: {dev}")
+    if dev.type == "cuda" and "WORLD_SIZE" in os.environ:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    world = dist.init_world(opt.vp, dev)
+    logger, sets = None, ()
+    try:
+        if opt.debug_nans:
+            # The nearest counterpart of jax_debug_nans: autograd raises at
+            # the backward op that produced a NaN.
+            torch.autograd.set_detect_anomaly(True)
+        os.makedirs(opt.workspace, exist_ok=True)
+        if world.is_lead:
+            from lgm_tpu_torch.utils.logging import MetricLogger
 
-    from lgm_tpu_torch.utils.logging import MetricLogger, save_image_grid
+            print(f"device: {dev}, world: {world.size} (dp {world.dp} x vp "
+                  f"{world.vp})")
+            logger = MetricLogger(opt.workspace)
+        state = create_state(opt, dev)
+        sets = make_datasets(opt, dev, world)
+        return _run(opt, dev, world, state, *sets, logger)
+    finally:
+        for ds in sets:
+            if isinstance(ds, DiskBatches):
+                ds.close()
+        if logger is not None:
+            logger.close()
+        dist.close(world)
 
-    logger = MetricLogger(opt.workspace)
-    state = create_state(opt, dev)
-    train_ds, test_ds = make_datasets(opt, dev)
+
+def _run(opt: Options, dev: torch.device, world: dist.World,
+         state: TrainState, train_ds, test_ds, logger):
+    from lgm_tpu_torch.utils.logging import save_image_grid
+
+    lead = world.is_lead
     if opt.resume:
         resume = opt.resume
         if resume == "auto":
             resume = latest_checkpoint(opt.workspace)
-            if resume:
+            if resume and lead:
                 print(f"auto-resuming from {resume}")
         if resume:
             state = load_checkpoint(resume, state)
+    if opt.zero1:
+        state.optimizer.shard(world)
+    if world.distributed:
+        # Gradients are averaged over the world in the backward; the
+        # wrapper's first act is to broadcast rank 0's parameters (the LGM
+        # has no buffers).
+        from torch.nn.parallel import DistributedDataParallel
+
+        state.model.lgm = DistributedDataParallel(
+            state.model.lgm,
+            device_ids=[dev.index] if dev.type == "cuda" else None)
 
     def run_eval():
-        evals = [{k: float(v) for k, v in eval_step(
-            state, _batch_data(test_ds.batch(i))).items()
-            if k != "images_pred"} for i in range(len(test_ds))]
+        evals = [dist.reduce_metrics(world, {
+            k: v for k, v in eval_step(
+                state, _batch_data(test_ds.batch(i))).items()
+            if k != "images_pred"}) for i in range(len(test_ds))]
         return {k: float(np.mean([e[k] for e in evals])) for k in evals[0]}
 
     if opt.eval_only:
         emeans = run_eval()
-        logger.log(state.step, emeans, prefix="eval")
-        print("eval-only: "
-              + " ".join(f"{k} {v:.4f}" for k, v in emeans.items()))
-        logger.close()
+        if lead:
+            logger.log(state.step, emeans, prefix="eval")
+            print("eval-only: "
+                  + " ".join(f"{k} {v:.4f}" for k, v in emeans.items()))
         return emeans
 
-    # Background colours from an explicit generator, one draw per step.
+    # Background colours from an explicit generator, one draw per step,
+    # the same on every rank.
     gen = torch.Generator().manual_seed(42)
     step, max_steps = state.step, opt.total_steps
     t_last = time.time()
@@ -351,7 +521,7 @@ def main(argv=None):
     except ValueError:  # not the main thread (driven from a test)
         prev_handlers = {}
     prof = None
-    prof_start = 10 if opt.profile_steps > 0 else -1
+    prof_start = 10 if opt.profile_steps > 0 and lead else -1
     prof_stop = prof_start + opt.profile_steps
     try:
         while step < max_steps:
@@ -370,42 +540,46 @@ def main(argv=None):
                     opt.workspace, "trace", "trace.json"))
                 prof = None
                 print(f"wrote trace to {opt.workspace}/trace")
-            batch = train_ds.batch(step)
-            data = _batch_data(batch)
+            data = _batch_data(train_ds.batch(step))
             bg = torch.rand(3, generator=gen).to(dev)
             metrics = train_step(state, data, bg)
             step = state.step
-            if stop_requested["flag"]:
-                path = save_checkpoint(opt.workspace, state, step)
-                print(f"preemption save at step {step}: {path}")
+            if dist.any_rank(world, stop_requested["flag"]):
+                path = save_checkpoint(opt.workspace, state, step, world)
+                if lead:
+                    print(f"preemption save at step {step}: {path}")
                 break
             if step % 100 == 0 or step == 1:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = dist.reduce_metrics(world, metrics)
                 dt = time.time() - t_last
                 t_last = time.time()
                 m["lr"] = current_lr(opt, step)
-                logger.log(step, m, prefix="train")
-                print(f"step {step}: loss {m['loss']:.4f} "
-                      f"psnr {m['psnr']:.2f} ({dt:.1f}s/100it)", flush=True)
-            if step % 500 == 0:
+                if lead:
+                    logger.log(step, m, prefix="train")
+                    print(f"step {step}: loss {m['loss']:.4f} "
+                          f"psnr {m['psnr']:.2f} ({dt:.1f}s/100it)",
+                          flush=True)
+            if step % 500 == 0 and lead:
+                # The lead rank's part of the batch.
                 ev = eval_step(state, data)
                 save_image_grid(
                     os.path.join(opt.workspace, f"train_images_{step}.jpg"),
-                    batch["images_output"].cpu().numpy(),
+                    data["images_output"].cpu().numpy(),
                     ev["images_pred"].cpu().numpy())
             if step % opt.eval_every == 0 or step == max_steps:
                 emeans = run_eval()
-                logger.log(step, emeans, prefix="eval")
-                print(f"eval @ {step}: " + " ".join(
-                    f"{k} {v:.4f}" for k, v in emeans.items()), flush=True)
-                path = save_checkpoint(opt.workspace, state, step)
-                print(f"saved {path}", flush=True)
+                path = save_checkpoint(opt.workspace, state, step, world)
+                if lead:
+                    logger.log(step, emeans, prefix="eval")
+                    print(f"eval @ {step}: " + " ".join(
+                        f"{k} {v:.4f}" for k, v in emeans.items()),
+                        flush=True)
+                    print(f"saved {path}", flush=True)
     finally:
         if prof is not None:
             prof.stop()
         for s, h in prev_handlers.items():
             signal.signal(s, h)
-        logger.close()
 
 
 if __name__ == "__main__":

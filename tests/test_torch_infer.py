@@ -17,7 +17,7 @@ from lgm_tpu.io.ply import load_ply as jax_load_ply
 from lgm_tpu.models.lgm import LGM as JaxLGM
 from lgm_tpu_torch import infer
 from lgm_tpu_torch.config import get_config
-from lgm_tpu_torch.io.ply import load_ply
+from lgm_tpu_torch.io.ply import load_ply, save_ply
 from lgm_tpu_torch.weights import flax_params_to_state_dict, \
     load_state_dict_into
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -96,6 +96,60 @@ def test_main_cli_runs_on_cpu(tmp_path):
     assert (ws / "v0.ply").exists()
     assert any(f.name.startswith("v0.") and f.suffix in (".mp4", ".npy")
                for f in ws.iterdir())
+
+
+def test_cli_reads_pngs_without_cv2(tmp_path):
+    """The card host has no cv2: in a subprocess where ``import cv2``
+    fails, ``--mv-images`` reads PNGs the port wrote (RGBA with
+    transparency, RGB, gray + alpha, gray) through io/png.py, and its
+    Gaussians (the .ply) equal the array path's, the same model's forward
+    on the views loaded here. Those views are cv2's (imread, composite, INTER_AREA
+    resize) within 1.2e-7: utils/resize.py sums the area weights in
+    float64."""
+    import subprocess
+    import sys
+
+    import cv2
+
+    from lgm_tpu_torch.io import png
+
+    rng = np.random.default_rng(4)
+    paths = []
+    for i, channels in enumerate((4, 3, 2, 1)):
+        img = rng.integers(0, 256, (40, 40, channels), dtype=np.uint8)
+        paths.append(str(tmp_path / f"v{i}.png"))
+        png.write(paths[-1], img[..., 0] if channels == 1 else img)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.modules['cv2'] = None\n"
+            "from lgm_tpu_torch import infer\n"
+            "infer.main(sys.argv[1:])\n")
+    ws = tmp_path / "ws"
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "nano", "--mv-images", *paths,
+         "--workspace", str(ws), "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (ws / "v0.frames.npy").exists()   # no cv2: no mp4 writer
+    opt = get_config("nano")
+    mv = np.stack([infer._load_rgba(p, opt.input_size) for p in paths])
+    gaussians = infer.forward_gaussians(infer.load_model(opt, device="cpu"),
+                                        mv)
+    save_ply(gaussians, str(tmp_path / "array.ply"))
+    np.testing.assert_array_equal(load_ply(str(ws / "v0.ply")),
+                                  load_ply(str(tmp_path / "array.ply")))
+    for p, view in zip(paths, mv):
+        img = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32) / 255
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        if img.shape[-1] == 4:
+            a = img[..., 3:4]
+            img = img[..., [2, 1, 0]] * a + (1 - a)
+        else:
+            img = img[..., [2, 1, 0]]
+        want = cv2.resize(img, (opt.input_size,) * 2,
+                          interpolation=cv2.INTER_AREA)
+        np.testing.assert_allclose(view, want, rtol=0, atol=1.2e-7)
 
 
 def test_cuda_entry_points_raise_without_a_card():

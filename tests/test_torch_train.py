@@ -427,8 +427,11 @@ def test_cli_runs_on_cpu_and_needs_a_card_by_default(tmp_path):
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["nano", "--workspace", ws, "--total-steps", "1"])
-    with pytest.raises(NotImplementedError):
-        train.create_state(get_config("nano").replace(vp=2), "cpu")
+    # vp > 1 needs a world of several processes (torchrun); alone, main
+    # refuses it before any work.
+    with pytest.raises(ValueError, match="vp=2"):
+        train.main(["nano", "--device", "cpu", "--workspace", ws,
+                    "--total-steps", "1", "--vp", "2"])
 
 
 def test_eval_cadence_profile_and_eval_only(tmp_path, capsys):
