@@ -44,7 +44,19 @@ checked against the counts each path must give):
   and the checkpoint, then 2 steps with ``--zero1 1``; ``train_disk``:
   the exact launches of K1, K1ᵇ, K2 and K2ᵇ a step, K1, K1ᵇ and K2ᵇ on
   the first step's own inputs), and the ``infer`` CLI in a subprocess on
-  four PNG views with that checkpoint (``infer_cli``).
+  four PNG views with that checkpoint (``infer_cli``);
+- the multi-view diffusion finetune: K1 and K1ᵇ at its level-0 shapes
+  (BH 20, S 4096 and 5120, D 64; ``k1_bwd_diffusion``), then
+  ``DiffusionTrainer`` at MVDream's and at ImageDream's published widths
+  (``diffusion_train``: bf16, 4 scenes x 4 frames at 256², synthetic
+  frames, 6 steps; K1 5, K1ᵇ 5 a step and K2 16 a batch; K1 and K1ᵇ on
+  the first step's own inputs; the U-Net gradients on the K1 route
+  against dense), and its command line under ``torchrun`` on the disk
+  dataset, 3 steps, its checkpoint and export read back
+  (``diffusion_train_cli``). The zero-initialised output layers that
+  ``from_config`` gives the U-Net, as ``lgm_tpu`` does, are drawn from a
+  seed here in every diffusion phase, so that ε and the gradients reach
+  every layer.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
@@ -95,6 +107,15 @@ K1_LSE_REL_TOL = 1e-5
 K1_DIFFUSION_SHAPES = {"mvdream": (10, 4096, 64), "imagedream": (10, 5120, 64)}
 DIFFUSION_SITES = 5
 N_DIFFUSION_STEPS = 30
+# K1 and K1ᵇ in the diffusion finetune at 256² (lgm_tpu/diffusion/train.py
+# at its default batch): BH = 4 scenes x 5 heads, S = F x 32² (F = 4, and
+# 5 with ImageDream's reference frame), D 64; DIFFUSION_SITES of each a
+# step.
+K1_TRAIN_SHAPES = {"mvdream": (20, 4096, 64), "imagedream": (20, 5120, 64)}
+# The finetune phases: scenes a batch, frames, image size, steps (the
+# first DIFFUSION_COLD_STEPS cold).
+DIFFUSION_BATCH, DIFFUSION_FRAMES, DIFFUSION_SIZE = 4, 4, 256
+DIFFUSION_TRAIN_STEPS, DIFFUSION_COLD_STEPS = 6, 2
 # The ImageDream U-Net's ε on the K1 route against the gate forced dense,
 # each CFG branch, relative RMS error: the two routes round P at different
 # points (K1 the unnormalized P, the dense path the normalized one), up to
@@ -1427,6 +1448,72 @@ def phase_k1_diffusion(dev):
     return out
 
 
+def phase_k1_bwd_diffusion(dev):
+    """K1 (writing its row statistic, as in training) and K1ᵇ at the
+    finetune's level-0 joint self-attention (``K1_TRAIN_SHAPES``: BH 4
+    scenes x 5 heads), on seeded inputs against their plain versions;
+    device times over K1_LAUNCHES calls beside the plain versions', SDPA's
+    forward and backward and the bounds. Returns the kernels-line entries
+    by model: K1's and K1ᵇ's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lgm_tpu_torch.ops.mha import (mha_bwd, mha_bwd_reference, mha_fwd,
+                                       mha_reference)
+
+    fwd, bwd = {}, {}
+    for model, (BH, S, D) in K1_TRAIN_SHAPES.items():
+        rng = np.random.default_rng(3 * S + BH)
+        q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
+                                       dtype=torch.float32, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = float(D) ** -0.5
+        o, lse, err, tol, lse_err, lse_tol = check_k1(q, k, v, scale, model)
+        with torch.no_grad():
+            b_err, b_tol = check_k1b(q, k, v, o, do, scale, lse, model)
+            ms = cuda_ms(lambda: mha_fwd(q, k, v, scale, return_lse=True),
+                         launches=K1_LAUNCHES)
+            plain_ms = cuda_ms(lambda: mha_reference(q, k, v, scale,
+                                                     return_lse=True), reps=5)
+            b_ms = cuda_ms(lambda: mha_bwd(q, k, v, o, do, scale, lse),
+                           launches=K1_LAUNCHES)
+            b_plain_ms = cuda_ms(lambda: mha_bwd_reference(
+                q, k, v, o, do, scale, lse), reps=5)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale),
+                launches=K1_LAUNCHES)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
+                                             scale=scale)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do[None], retain_graph=True),
+            launches=K1_LAUNCHES)
+        del out, qs, ks, vs
+        f_bound, f_by = k1_bound(BH, S, D)
+        b_bound, b_by = k1b_bound(BH, S, D)
+        emit("k1_bwd_diffusion", model=model, shape=[BH, S, D],
+             sites_per_step=DIFFUSION_SITES, k1_max_abs_err=err, k1_tol=tol,
+             k1_lse_max_abs_err=lse_err, k1_lse_tol=lse_tol, k1_ms=ms,
+             k1_plain_ms=plain_ms, k1_library_ms=sdpa_ms,
+             k1_over_library=ms / sdpa_ms, k1_bound_us=f_bound * 1e3,
+             k1_bound_by=f_by, k1_over_bound=ms / f_bound,
+             k1b_max_abs_err=b_err, k1b_tol=b_tol, k1b_ms=b_ms,
+             k1b_plain_ms=b_plain_ms, k1b_library_ms=sdpa_bwd_ms,
+             k1b_over_library=b_ms / sdpa_bwd_ms, k1b_bound_us=b_bound * 1e3,
+             k1b_bound_by=b_by, k1b_over_bound=b_ms / b_bound,
+             k1b_ms_per_step=b_ms * DIFFUSION_SITES)
+        fwd[model] = dict(shape=[BH, S, D], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=f_bound, bound_by=f_by,
+                          library_ms=sdpa_ms)
+        bwd[model] = dict(shape=[BH, S, D], max_abs_err=b_err, ms=b_ms,
+                          plain_ms=b_plain_ms, bound_ms=b_bound,
+                          bound_by=b_by, library_ms=sdpa_bwd_ms)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def stage_clock(pipe):
     """A context in which spies on ``pipe``'s methods time the pipeline's
     stages: yields {stage: wall seconds}, each call timed from a device
@@ -1480,6 +1567,30 @@ def fixture_tokenizer(max_tokens: int):
                                       "clip_tokenizer"), max_tokens)
 
 
+def seed_zero_layers(pipe, seed: int) -> int:
+    """Draw, from PyTorch's default initialisation under ``seed``, the
+    U-Net layers that ``from_config`` leaves at zero as ``lgm_tpu`` does
+    (``mv_unet.zero_init_modules``: each SpatialTransformer's proj_out,
+    each ResBlock's out conv, the final out conv): with them at zero the
+    U-Net predicts ε = 0, and neither the paths behind them nor their
+    gradients would be exercised. Raises if ``from_config`` did not leave
+    them at zero; returns their number."""
+    import torch
+
+    from lgm_tpu_torch.diffusion.mv_unet import zero_init_modules
+
+    mods = zero_init_modules(pipe.unet)
+    if any(bool(m.weight.any()) or bool(m.bias.any()) for m in mods):
+        raise AssertionError("from_config left a zero-init layer non-zero")
+    dev = pipe.device
+    with torch.random.fork_rng(devices=[dev.index or 0]
+                               if dev.type == "cuda" else []):
+        torch.manual_seed(seed)
+        for m in mods:
+            m.reset_parameters()
+    return len(mods)
+
+
 def phase_diffusion_text(dev):
     """MVDream at its published widths (``CONFIGS["mvdream"]``: bf16 U-Net
     and VAE, f32 CLIP) with seeded random weights and the fixture
@@ -1497,6 +1608,7 @@ def phase_diffusion_text(dev):
     pipe = MVDreamPipeline.from_config(
         "mvdream", seed=0, device=str(dev),
         tokenizer=fixture_tokenizer(CONFIGS["mvdream"].max_tokens))
+    seed_zero_layers(pipe, seed=100)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1573,6 +1685,7 @@ def phase_image_to_3d(dev, model):
     pipe = MVDreamPipeline.from_config(
         "imagedream", seed=1, device=str(dev),
         tokenizer=fixture_tokenizer(CONFIGS["imagedream"].max_tokens))
+    seed_zero_layers(pipe, seed=101)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
 
@@ -1697,6 +1810,290 @@ def phase_image_to_3d(dev, model):
     del pipe, captured, args, kw
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_diffusion_train(dev, name):
+    """The diffusion finetune at ``name``'s published widths (MVDream or
+    ImageDream: bf16 U-Net over f32 parameters, the frozen VAE and CLIP
+    towers, the fixture tokenizer), from ``from_config`` (repair R2: the
+    output layers at zero, checked, then drawn here from a seed so that
+    every layer has a gradient), through ``DiffusionTrainer.train_step``
+    at lr 1e-4, warmup 1, EMA 0.9999, cond-drop 0.1, on one fixed
+    synthetic batch (4 scenes x 4 frames at 256², rendered anew each
+    step: K2, B·F launches): DIFFUSION_TRAIN_STEPS steps, the first
+    DIFFUSION_COLD_STEPS cold. Per step: the step's time, the batch's
+    (render, then the encoders of ``prepare_batch``), the exact launches
+    of K1, K1ᵇ and K2; K1 and K1ᵇ on the first step's own inputs, K2 on
+    the first batch's first render; the
+    U-Net gradients on the K1 route against the gate forced dense on the
+    first step's prepared batch; the loss on that batch after the steps
+    below the first step's; then a profile of a warm step. Returns the
+    launches a step and a batch."""
+    import contextlib
+    import gc
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import lgm_tpu_torch.diffusion.mv_unet as mv
+    from lgm_tpu_torch.diffusion.data import SyntheticMVData
+    from lgm_tpu_torch.diffusion.pipeline import CONFIGS, MVDreamPipeline
+    from lgm_tpu_torch.diffusion.train import DiffusionTrainer, diffusion_loss
+    from lgm_tpu_torch.ops import mha as mha_mod
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    t0 = time.perf_counter()
+    pipe = MVDreamPipeline.from_config(
+        name, seed=2, device=str(dev),
+        tokenizer=fixture_tokenizer(CONFIGS[name].max_tokens))
+    zero_layers = seed_zero_layers(pipe, seed=102)
+    trainer = DiffusionTrainer(pipe, lr=1e-4, warmup=1, cond_drop=0.1,
+                               seed=0, ema_decay=0.9999)
+    ds = SyntheticMVData(num_frames=DIFFUSION_FRAMES,
+                         image_size=DIFFUSION_SIZE, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.optimizer.params)
+
+    counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, fs.composite_fwd)
+    prepared, captured = [], {}
+    prepare = trainer.prepare_batch
+
+    def timed_prepare(data):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = prepare(data)
+        torch.cuda.synchronize()
+        prepared.append((batch, time.perf_counter() - t))
+        return batch
+
+    rec = {"step_s": [], "render_s": [], "prepare_s": [], "loss": [],
+           "gnorm": [], "launches": [], "batch_launches": []}
+    composite = fs.composite
+
+    def render_spy(params, counts, th, tw, tiles_x):
+        # The first batch's first K2 call: its inputs and its output.
+        out = composite(params, counts, th, tw, tiles_x)
+        captured.setdefault("k2", (params, counts, th, tw, tiles_x, out))
+        return out
+
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    with route_counts(mv) as routes, \
+            mock.patch.object(trainer, "prepare_batch", timed_prepare):
+        for i in range(DIFFUSION_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            k2_before = counters[2].launches
+            with contextlib.ExitStack() as stack:
+                if i == 0:
+                    stack.enter_context(mock.patch.object(
+                        fs, "composite", render_spy))
+                data = ds.batch(0, DIFFUSION_BATCH)
+            rec["render_s"].append(time.perf_counter() - t)
+            rec["batch_launches"].append(counters[2].launches - k2_before)
+            before = [fn.launches for fn in counters]
+            t = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                for spy in backward_spies(captured) if i == 0 else ():
+                    stack.enter_context(spy)
+                m = trainer.train_step(data)
+            torch.cuda.synchronize()
+            step_total = time.perf_counter() - t
+            rec["prepare_s"].append(prepared[-1][1])
+            rec["step_s"].append(step_total - prepared[-1][1])
+            rec["launches"].append([fn.launches - b for fn, b in
+                                    zip(counters, before)])
+            rec["loss"].append(float(m["loss"]))
+            rec["gnorm"].append(float(m["gnorm"]))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    per_step = [DIFFUSION_SITES, DIFFUSION_SITES, 0]
+    per_batch = DIFFUSION_BATCH * DIFFUSION_FRAMES
+    if (any(l != per_step for l in rec["launches"])
+            or any(n != per_batch for n in rec["batch_launches"])
+            or routes["kernel"] != DIFFUSION_SITES * DIFFUSION_TRAIN_STEPS
+            or not np.isfinite(rec["loss"] + rec["gnorm"]).all()):
+        raise AssertionError(f"{name}: launches {rec['launches']} a step "
+                             f"(expected {per_step}), "
+                             f"{rec['batch_launches']} a batch (expected "
+                             f"{per_batch}), routes {routes}, losses "
+                             f"{rec['loss']}, gnorms {rec['gnorm']}")
+
+    # K1 and K1ᵇ on the first step's own inputs (the deepest site's).
+    q, k, v, o, do, scale, lse = captured["k1"]
+    with torch.no_grad():
+        o2, lse2, k1_err, _, _, _ = check_k1(q, k, v, scale, name)
+        if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
+            raise AssertionError(f"K1 on the {name} step's inputs differs "
+                                 "from the step's own o or lse")
+        k1b_err, k1b_tol = check_k1b(q, k, v, o, do, scale, lse, name)
+        # K2 on the first batch's first render: what it gives again is
+        # what the batch rendered (the kernel is deterministic), held
+        # against its plain version.
+        params, counts, th, tw, tiles_x, out = captured["k2"]
+        if not torch.equal(fs.composite_fwd(params, counts, th, tw, tiles_x),
+                           out):
+            raise AssertionError(f"K2 on the {name} batch's view differs "
+                                 "from the batch's own render")
+        k2_err = float((out - fs.composite_reference(
+            params, counts, th, tw, tiles_x)).abs().max())
+        if not k2_err <= K2_ATOL:
+            raise AssertionError(f"K2 {name} batch: max abs err {k2_err}")
+        k2_shape = [list(params.shape), th, tw, tiles_x]
+    site_shape = list(q.shape)
+    captured.clear()
+    del q, k, v, o, do, lse, o2, lse2, params, counts, out
+
+    # The U-Net gradients on the first step's prepared batch, K1 route
+    # against the gate forced dense (relative RMS over all leaves), and
+    # the loss there after the steps against the first step's.
+    batch0 = prepared[0][0]
+    prepared.clear()
+    params = trainer.optimizer.params
+
+    def grads():
+        for p in params:
+            p.grad = None
+        loss = diffusion_loss(trainer.unet, batch0, trainer.alphas_cumprod,
+                              trainer.ip)
+        loss.backward()
+        out = [p.grad for p in params]
+        for p in params:
+            p.grad = None
+        return loss.item(), out
+
+    for fn in counters:
+        fn.launches = 0
+    loss_k1, g_k1 = grads()
+    if (mha_mod.mha_fwd.launches, mha_mod.mha_bwd.launches) != (
+            DIFFUSION_SITES, DIFFUSION_SITES):
+        raise AssertionError("the gradient check did not take the K1 route")
+    with mock.patch.object(mv, "kernel_route", lambda *a: False):
+        loss_dense, g_dense = grads()
+    num = sum(float((a.float() - b.float()).square().sum())
+              for a, b in zip(g_k1, g_dense))
+    den = sum(float(b.float().square().sum()) for b in g_dense)
+    grad_rel_rms = (num / den) ** 0.5
+    del g_k1, g_dense
+    if not grad_rel_rms <= EPS_ROUTE_REL_TOL:
+        raise AssertionError(f"{name}: U-Net gradients, K1 route vs dense: "
+                             f"relative RMS {grad_rel_rms} > "
+                             f"{EPS_ROUTE_REL_TOL}")
+    if not loss_k1 < rec["loss"][0]:
+        raise AssertionError(f"{name}: loss on the first batch after "
+                             f"{DIFFUSION_TRAIN_STEPS} steps {loss_k1}, "
+                             f"not below the first step's {rec['loss'][0]}")
+    warm = rec["step_s"][DIFFUSION_COLD_STEPS:]
+    loader = [r + p for r, p in zip(rec["render_s"], rec["prepare_s"])]
+    emit("diffusion_train", config=name, params=n_params, load_s=load_s,
+         zero_init_layers=zero_layers, batch=[DIFFUSION_BATCH,
+                                               DIFFUSION_FRAMES,
+                                               DIFFUSION_SIZE],
+         compute_dtype=CONFIGS[name].compute_dtype, lr=1e-4, warmup=1,
+         ema_decay=0.9999, steps=DIFFUSION_TRAIN_STEPS,
+         cold_steps=DIFFUSION_COLD_STEPS, steps_s=rec["step_s"],
+         step_warm_s=median(warm), step_warm_spread_s=max(warm) - min(warm),
+         render_s=rec["render_s"], prepare_s=rec["prepare_s"],
+         batch_warm_s=median(loader[DIFFUSION_COLD_STEPS:]),
+         peak_mem_gb=peak_gb, loss=rec["loss"], gnorm=rec["gnorm"],
+         loss_first_batch_after=loss_k1, loss_first_batch_dense=loss_dense,
+         launches_per_step=dict(zip(("mha_fwd", "mha_bwd"), per_step)),
+         composite_fwd_per_batch=per_batch, attention_routes=routes,
+         site_shape=site_shape, k1_max_abs_err=k1_err,
+         k1_bwd_max_abs_err=k1b_err, k1_bwd_tol=k1b_tol,
+         k2_shape=k2_shape, k2_max_abs_err=k2_err, k2_atol=K2_ATOL,
+         grad_k1_vs_dense_rel_rms=grad_rel_rms,
+         grad_rel_tol=EPS_ROUTE_REL_TOL)
+    # One warm step (the batch prepared inside it) under the profiler.
+    profile_window(f"diffusion_train_{name}",
+                   lambda: trainer.train_step(data))
+    del trainer, pipe, batch0, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mha_fwd": per_step[0] * DIFFUSION_TRAIN_STEPS,
+            "mha_bwd": per_step[1] * DIFFUSION_TRAIN_STEPS,
+            "composite_fwd": per_batch * DIFFUSION_TRAIN_STEPS,
+            "per_step": {"mha_fwd": per_step[0], "mha_bwd": per_step[1]},
+            "per_batch": {"composite_fwd": per_batch}}
+
+
+def phase_diffusion_train_cli(dev, root):
+    """``python -m torch.distributed.run --nproc_per_node 1 -m
+    lgm_tpu_torch.diffusion.train --pipeline mvdream --data-mode lvis``
+    as a user runs it, on the card (NCCL, world size 1): on
+    ``disk_dataset``'s scenes, batch 4, 3 steps, the checkpoint and the
+    export; then ``MVDreamPipeline.from_pretrained`` of the export: its
+    U-Net is the EMA in ``dckpt_3`` bit for bit, and it samples 2 DDIM
+    steps on the card. Both written trees are deleted after."""
+    import shutil
+    import sys
+
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch.diffusion.pipeline import MVDreamPipeline
+
+    ws = os.path.join(ROOT, "build", "smoke", "diffusion_cli")
+    export = os.path.join(ws, "export")
+    if os.path.isdir(ws):
+        shutil.rmtree(ws)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_addr", "127.0.0.1", "--master_port",
+           str(free_port()), "-m", "lgm_tpu_torch.diffusion.train",
+           "--pipeline", "mvdream", "--tokenizer",
+           os.path.join(ROOT, "tests", "fixtures", "clip_tokenizer"),
+           "--data-mode", "lvis", "--data-path", root, "--batch-size",
+           str(DIFFUSION_BATCH), "--image-size", str(DIFFUSION_SIZE),
+           "--total-steps", "3", "--workspace", ws, "--export", export,
+           "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"diffusion train CLI exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    ckpt_path = os.path.join(ws, "dckpt_3")
+    ckpt_gb = os.path.getsize(ckpt_path) / 2**30
+    export_gb = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, fs in os.walk(export) for f in fs) / 2**30
+    with open(os.path.join(ws, "metrics.jsonl")) as fh:
+        logged = [json.loads(line) for line in fh]
+    t0 = time.perf_counter()
+    pipe = MVDreamPipeline.from_pretrained(export, device=str(dev))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True,
+                      mmap=True)
+    ours = pipe.unet.state_dict()
+    if sorted(ours) != sorted(ckpt["ema"]) or not all(
+            torch.equal(ours[n].cpu(), ckpt["ema"][n]) for n in ours):
+        raise AssertionError("the exported U-Net is not dckpt_3's EMA")
+    step = int(ckpt["step"])
+    del ckpt, ours
+    t0 = time.perf_counter()
+    images = pipe(prompt="a red chair", guidance_scale=7.5,
+                  num_inference_steps=2, seed=0, height=DIFFUSION_SIZE,
+                  width=DIFFUSION_SIZE)
+    sample_s = time.perf_counter() - t0
+    size = DIFFUSION_SIZE
+    if not (step == 3 and images.shape == (4, size, size, 3)
+            and np.isfinite(images).all() and len(logged) == 1
+            and np.isfinite(logged[0]["diffusion/loss"])):
+        raise AssertionError(f"step {step}, images {images.shape}, logged "
+                             f"{logged}")
+    emit("diffusion_train_cli", pipeline="mvdream", data="lvis",
+         batch_size=DIFFUSION_BATCH, steps=3,
+         process_group="nccl" if dev.type == "cuda" else "gloo", wall_s=wall_s,
+         logged=logged[0], checkpoint_gb=ckpt_gb, export_gb=export_gb,
+         from_pretrained_s=load_s, ema_equals_export=True, sample_steps=2,
+         sample_s=sample_s, images=list(images.shape),
+         stdout_tail=proc.stdout.strip().splitlines()[-3:])
+    del pipe
+    torch.cuda.empty_cache()
+    shutil.rmtree(ws)
 
 
 def free_port() -> int:
@@ -2179,6 +2576,7 @@ def main() -> int:
     k3b = phase_k3_bwd(dev, k3_args, k3_out, k3_work)
     del k3_args, k3_out
     k1_diffusion = phase_k1_diffusion(dev)
+    k1_train_shapes, k1b_train_shapes = phase_k1_bwd_diffusion(dev)
     infer_launches, model, mv, gaussians = phase_main(dev)
     phase_profile(dev, model, mv, gaussians)
     text_launches = phase_diffusion_text(dev)
@@ -2192,12 +2590,15 @@ def main() -> int:
     phase_v1_image(dev)
     phase_nano(dev)
     torch.cuda.empty_cache()
+    finetune_launches = {name: phase_diffusion_train(dev, name)
+                         for name in ("mvdream", "imagedream")}
     phase_png_codec(dev)
     root = phase_disk_dataset(dev)
     phase_loader(dev, root)
     disk_launches, ckpt = phase_train_disk(dev, root)
     torch.cuda.empty_cache()
     phase_infer_cli(dev, root, ckpt)
+    phase_diffusion_train_cli(dev, root)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2209,6 +2610,7 @@ def main() -> int:
              diffusion_text_launches=text_launches["mha_fwd"],
              image_to_3d_launches=image_launches["mha_fwd"],
              diffusion_shapes=k1_diffusion,
+             diffusion_train_shapes=k1_train_shapes,
              **{k: k1[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_fwd.cu",
@@ -2220,6 +2622,7 @@ def main() -> int:
         dict(name="mha_bwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",
              replaces="lgm_tpu/ops/mha.py:61", launches=launches["mha_bwd"],
+             diffusion_shapes_bwd=k1b_train_shapes,
              **{k: k1b[k] for k in keys}),
         dict(name="composite_bwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_bwd.cu",
@@ -2242,6 +2645,11 @@ def main() -> int:
     for kernel in kernels[:4]:
         kernel["train_v1_launches"] = v1_launches[kernel["name"]]
         kernel["train_disk_launches"] = disk_launches[kernel["name"]]
+    # The finetune phases' counts (6 steps each) of the kernels they run.
+    for kernel in kernels[:3]:
+        kernel["diffusion_train_launches"] = {
+            name: counts[kernel["name"]]
+            for name, counts in finetune_launches.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

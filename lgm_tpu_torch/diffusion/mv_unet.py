@@ -351,6 +351,35 @@ class Upsample(nn.Module):
                                               mode="nearest"), self.dtype)
 
 
+def zero_init_modules(unet: "MultiViewUNetModel") -> List[nn.Module]:
+    """The layers ``lgm_tpu``'s U-Net initialises at zero
+    (``kernel_init=zeros``, ``lgm_tpu/diffusion/mv_unet.py:238-239, 344-345,
+    486-488``): each SpatialTransformer3D's ``proj_out``, each ResBlock's
+    ``out_layers.3`` and the final ``out.2``. With them at zero the
+    untrained U-Net predicts ε = 0."""
+    mods: List[nn.Module] = []
+    for m in unet.modules():
+        if isinstance(m, SpatialTransformer3D):
+            mods.append(m.proj_out)
+        elif isinstance(m, ResBlock):
+            mods.append(m.out_layers[3])
+    mods.append(unet.out[2])
+    return mods
+
+
+@torch.no_grad()
+def init_like_lgm_tpu_(unet: "MultiViewUNetModel") -> None:
+    """Give ``unet`` the zeros of ``lgm_tpu``'s initialisation, in place:
+    every bias of a linear or convolution layer (Flax's default bias
+    initialiser) and the weights of ``zero_init_modules``. The other
+    weights keep PyTorch's default draws."""
+    for m in unet.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)) and m.bias is not None:
+            m.bias.zero_()
+    for m in zero_init_modules(unet):
+        m.weight.zero_()
+
+
 class MultiViewUNetModel(nn.Module):
     """The multi-view diffusion U-Net (ref: mv_unet.py:615-1005).
 

@@ -16,8 +16,10 @@ are computed on the host once (``DDIMScheduler.step_arrays``) and moved
 to the device before the loop, so no step reads back from it.
 
 ``from_config(name, seed, device)`` initializes every module from
-PyTorch's default initialization under ``seed`` (no zero-initialized
-output layers: random weights exercise every path); ``from_pretrained``
+PyTorch's default initialization under ``seed``, and then gives the U-Net
+the zeros of ``lgm_tpu``'s initialization (``mv_unet.init_like_lgm_tpu_``:
+every bias, and the output layers, so the untrained U-Net predicts ε = 0,
+as the finetune expects of its starting model); ``from_pretrained``
 reads the published diffusers layout (``unet/``, ``vae/``,
 ``text_encoder/``, ``image_encoder/``, ``tokenizer/``, each with its
 ``config.json``), which ``save_pretrained`` writes. ``latents`` injects
@@ -41,7 +43,8 @@ import torch
 
 from lgm_tpu_torch.diffusion.clip import CLIPTextModel, CLIPVisionModel
 from lgm_tpu_torch.diffusion.ddim import DDIMScheduler
-from lgm_tpu_torch.diffusion.mv_unet import MultiViewUNetModel, get_camera
+from lgm_tpu_torch.diffusion.mv_unet import (MultiViewUNetModel, get_camera,
+                                             init_like_lgm_tpu_)
 from lgm_tpu_torch.diffusion.tokenizer import (CLIPTokenizer, HashTokenizer,
                                                load_tokenizer)
 from lgm_tpu_torch.diffusion.vae import SCALING_FACTOR, AutoencoderKL
@@ -218,13 +221,16 @@ class MVDreamPipeline:
     def from_config(cls, name: str = "mvdream", seed: int = 0,
                     device: str = "cuda", tokenizer=None):
         """Seeded random weights on ``device`` (the published checkpoints
-        are not in the repository)."""
+        are not in the repository), with the U-Net's zeros where
+        ``lgm_tpu``'s ``from_config`` has them."""
         dev = resolve_device(device)
         rng_devices = ([torch.cuda.current_device() if dev.index is None
                         else dev.index] if dev.type == "cuda" else [])
         with torch.random.fork_rng(devices=rng_devices):
             torch.manual_seed(seed)
-            return cls(CONFIGS[name], str(dev), tokenizer=tokenizer)
+            pipe = cls(CONFIGS[name], str(dev), tokenizer=tokenizer)
+        init_like_lgm_tpu_(pipe.unet)
+        return pipe
 
     @staticmethod
     def config_from_dir(path: str) -> PipelineConfig:
@@ -263,9 +269,13 @@ class MVDreamPipeline:
             for name in pipe.modules()})
         return pipe
 
-    def save_pretrained(self, path: str) -> None:
+    def save_pretrained(self, path: str,
+                        state_dicts: Optional[Dict[str, Dict]] = None
+                        ) -> None:
         """Write the diffusers layout that ``from_pretrained`` reads
-        (``.safetensors`` where safetensors imports, else ``.bin``)."""
+        (``.safetensors`` where safetensors imports, else ``.bin``); a
+        component named in ``state_dicts`` is written from the state dict
+        given there instead of its module's (the finetune's EMA U-Net)."""
         c = dataclasses.asdict(self.cfg)
         for name, module in self.modules().items():
             folder = os.path.join(path, name)
@@ -273,8 +283,9 @@ class MVDreamPipeline:
             with open(os.path.join(folder, "config.json"), "w") as f:
                 json.dump({src: c[dst] for src, dst in
                            _CONFIG_KEYS[name].items()}, f, indent=1)
+            sd = (state_dicts or {}).get(name) or module.state_dict()
             sd = {k: v.detach().float().cpu().contiguous()
-                  for k, v in module.state_dict().items()}
+                  for k, v in sd.items()}
             stem = _WEIGHT_FILES[name]
             if _has_safetensors():
                 from safetensors.torch import save_file

@@ -72,7 +72,9 @@ class World:
 def init_world(vp: int, device: torch.device) -> World:
     """The world ``torchrun`` launched this process into (a process group
     over NCCL for a CUDA ``device``, gloo otherwise), or one process when
-    ``WORLD_SIZE`` is unset. The world size must divide by ``vp``."""
+    ``WORLD_SIZE`` is unset. The world size must divide by ``vp``. Under
+    torchrun a CUDA rank runs on ``cuda:LOCAL_RANK``, made the current
+    device; ``World.device`` is the device the rank runs on."""
     if "WORLD_SIZE" not in os.environ:
         if vp != 1:
             raise ValueError(f"vp={vp} needs a world of a multiple of {vp} "
@@ -82,6 +84,9 @@ def init_world(vp: int, device: torch.device) -> World:
     if size % vp:
         raise ValueError(f"world size {size} is not a multiple of vp={vp}")
     cuda = device.type == "cuda"
+    if cuda:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
     dist.init_process_group("nccl" if cuda else "gloo", rank=rank,
                             world_size=size,
                             device_id=device if cuda else None)

@@ -51,12 +51,13 @@ after the same step.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import re
 import signal
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -71,6 +72,29 @@ from lgm_tpu_torch.parallel import dist
 
 B1, B2, ADAM_EPS, WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.05
 B1_BF16 = float(torch.tensor(B1, dtype=torch.bfloat16))  # 0.8984375
+
+
+@dataclass(frozen=True)
+class AdamW:
+    """An optax chain ``clip_by_global_norm(clip)``, then ``adamw(schedule,
+    b1=0.9, b2, eps, weight_decay, mu_dtype=bf16)`` over every leaf (no
+    mask), in ``MultiSteps(every_k)`` when ``every_k`` > 1. ``schedule``
+    maps Adam's count before it increments to the learning rate, in
+    optax's f32 arithmetic."""
+
+    schedule: Callable[[int], float]
+    clip: float
+    b2: float
+    weight_decay: float
+    eps: float = ADAM_EPS
+    every_k: int = 1
+
+
+def lgm_chain(opt: Options) -> AdamW:
+    """LGM's chain (``lgm_tpu/train.py``): b2 0.95, weight decay 0.05, the
+    one-cycle schedule of ``current_lr``."""
+    return AdamW(functools.partial(current_lr, opt), opt.gradient_clip, B2,
+                 WEIGHT_DECAY, every_k=opt.gradient_accumulation_steps)
 
 
 def current_lr(opt: Options, step: int) -> float:
@@ -97,19 +121,19 @@ def current_lr(opt: Options, step: int) -> float:
 
 
 class Optimizer:
-    """optax.chain(clip_by_global_norm(clip), adamw(schedule, b1=0.9,
-    b2=0.95, eps=1e-8, weight_decay=0.05, mu_dtype=bf16)), wrapped in
-    MultiSteps when ``gradient_accumulation_steps > 1``; over ``params``,
-    updated in place by ``update(grads)``. After ``shard(world)``, ZeRO-1."""
+    """The ``AdamW`` chain over ``params`` (``opt`` an ``AdamW``, or the
+    ``Options`` whose ``lgm_chain`` it is), updated in place by
+    ``update(grads)``. After ``shard(world)``, ZeRO-1."""
 
-    def __init__(self, params: List[torch.nn.Parameter], opt: Options):
+    def __init__(self, params: List[torch.nn.Parameter],
+                 opt: Union[Options, AdamW]):
         self.params = list(params)
-        self.opt = opt
+        self.chain = opt if isinstance(opt, AdamW) else lgm_chain(opt)
         self.count = 0          # Adam's and the schedule's count
         self.mu = [torch.zeros_like(p, dtype=torch.bfloat16)
                    for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.k_steps = opt.gradient_accumulation_steps
+        self.k_steps = self.chain.every_k
         self.mini_step = 0
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if self.k_steps > 1 else None)
@@ -153,14 +177,15 @@ class Optimizer:
     @torch.no_grad()
     def _apply(self, grads: List[torch.Tensor],
                g_norm: torch.Tensor) -> None:
-        max_norm = self.opt.gradient_clip
+        chain = self.chain
+        b2, max_norm = chain.b2, chain.clip
         keep = g_norm < max_norm
-        lr = current_lr(self.opt, self.count)
+        lr = chain.schedule(self.count)
         self.count += 1
         dev = g_norm.device
         # Bias corrections 1 - b**count in f32, as optax computes them.
         bc1 = 1 - torch.tensor(B1, device=dev) ** self.count
-        bc2 = 1 - torch.tensor(B2, device=dev) ** self.count
+        bc2 = 1 - torch.tensor(b2, device=dev) ** self.count
         for p, g, mu, nu, axis in zip(self.params, grads, self.mu, self.nu,
                                       self.axes):
             g = torch.where(keep, g, (g / g_norm) * max_norm)
@@ -173,9 +198,9 @@ class Optimizer:
             # product and the sum in f32, and mu is rounded to bf16 once,
             # when stored. (1 - b1) stays the f32 0.1.
             mu_f = (1 - B1) * g + B1_BF16 * mu.float()
-            nu.mul_(B2).add_((1 - B2) * (g * g))
-            u = (mu_f / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-            u = u + WEIGHT_DECAY * p
+            nu.mul_(b2).add_((1 - b2) * (g * g))
+            u = (mu_f / bc1) / (torch.sqrt(nu / bc2) + chain.eps)
+            u = u + chain.weight_decay * p
             p.add_(u * (-lr))
             mu.copy_(mu_f)
             if axis is not None:
@@ -435,11 +460,8 @@ def main(argv=None):
                      help="cuda (default) or cpu")
     ns, rest = pre.parse_known_args(argv)
     opt = parse_cli(rest)
-    dev = resolve_device(ns.device)
-    if dev.type == "cuda" and "WORLD_SIZE" in os.environ:
-        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-        torch.cuda.set_device(dev)
-    world = dist.init_world(opt.vp, dev)
+    world = dist.init_world(opt.vp, resolve_device(ns.device))
+    dev = world.device
     logger, sets = None, ()
     try:
         if opt.debug_nans:

@@ -19,8 +19,12 @@ name maps (reference MVDream U-Net names, diffusers' VAE names) and
 transformers' Flax CLIP names, giving the state dicts of the port's
 ``diffusion`` modules.
 
-Orbax checkpoints written by ``lgm_tpu.train`` need JAX to read and are
-not loaded here.
+``diffusion_train_state_to_torch`` turns ``lgm_tpu``'s diffusion
+finetune state (parameters, Adam's moments, the EMA) into the port's
+trainer state, through the same U-Net name map.
+
+Orbax checkpoints written by ``lgm_tpu`` need JAX to read and are not
+loaded here (``scripts/dckpt_to_torch.py`` converts a finetune's).
 """
 
 from __future__ import annotations
@@ -225,6 +229,46 @@ def diffusion_params_to_state_dicts(params: Mapping) -> Dict[str, Dict]:
                                             bare=("class_embedding",))
         else:
             raise KeyError(f"unknown pipeline component {comp!r}")
+    return out
+
+
+def _adam_state(tree):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    if hasattr(tree, "mu") and hasattr(tree, "nu"):
+        return tree
+    children = (tree.values() if isinstance(tree, Mapping) else
+                tree if isinstance(tree, (tuple, list)) else ())
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _unet_tensors(tree: Mapping, dtype=torch.float32) -> Dict:
+    return {k: torch.as_tensor(v).to(dtype) for k, v in
+            diffusion_params_to_state_dicts({"unet": tree})["unet"].items()}
+
+
+def diffusion_train_state_to_torch(state: Mapping) -> Dict:
+    """``lgm_tpu.diffusion.train``'s finetune state (numpy trees
+    ``{"unet", "opt_state", "step"}`` and ``"ema"`` where it keeps one;
+    ``opt_state`` optax's ``(ClipByGlobalNormState, (ScaleByAdamState(count,
+    mu, nu), EmptyState, ScaleByScheduleState))``) -> the port's
+    ``DiffusionTrainer.state_dict()``: the U-Net's state dict, Adam's
+    count, its bf16 first and f32 second moments and the EMA keyed by the
+    port's parameter names (the U-Net name map of
+    ``diffusion_params_to_state_dicts``)."""
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise KeyError("no Adam state (mu, nu) in opt_state")
+    out = {"unet": _unet_tensors(state["unet"]),
+           "opt_state": {"count": int(np.asarray(adam.count)),
+                         "mu": _unet_tensors(adam.mu, torch.bfloat16),
+                         "nu": _unet_tensors(adam.nu)},
+           "step": int(np.asarray(state["step"]))}
+    if state.get("ema") is not None:
+        out["ema"] = _unet_tensors(state["ema"])
     return out
 
 

@@ -812,8 +812,11 @@ def test_nano_trains_one_step_on_the_card(cuda, precision, monkeypatch):
 
 # K1 in the diffusion U-Net: the joint self-attention of level 0 at 256²
 # for MVDream (F = 4) and ImageDream (F = 5): BH = 2 (CFG) x 5 heads,
-# S = F x 32², D = 64.
-DIFFUSION_K1_SHAPES = [(10, 4096, 64), (10, 5120, 64)]
+# S = F x 32², D = 64; in the finetune at its batch of 4 scenes, BH = 20,
+# where K1ᵇ runs too.
+DIFFUSION_K1_SHAPES = [(10, 4096, 64), (10, 5120, 64), (20, 4096, 64),
+                       (20, 5120, 64)]
+DIFFUSION_K1B_SHAPES = [(20, 4096, 64), (20, 5120, 64)]
 
 
 @pytest.mark.parametrize("BH,S,D", DIFFUSION_K1_SHAPES)
@@ -855,3 +858,44 @@ def test_spatial_transformer_k1_route_matches_dense(cuda, monkeypatch):
     assert mha_fwd.launches == before + 1
     assert torch.isfinite(ours.float()).all()
     _close(ours, dense, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("BH,S,D", DIFFUSION_K1B_SHAPES)
+def test_mha_bwd_kernel_at_diffusion_shapes(cuda, BH, S, D):
+    """K1ᵇ at the finetune's shapes, fed K1's statistic, against its plain
+    version (two rounding steps of each gradient's scale), and twice for
+    the same bits."""
+    rng = np.random.default_rng(S + BH)
+    q, k, v, do = (_bf16(rng, (BH, S, D), cuda) for _ in range(4))
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, D ** -0.5, return_lse=True)
+        ours = mha_bwd(q, k, v, o, do, D ** -0.5, lse)
+        again = mha_bwd(q, k, v, o, do, D ** -0.5, lse)
+        ref = mha_bwd_reference(q, k, v, o, do, D ** -0.5, lse)
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("dq", "dk", "dv"), ours, ref, again):
+        assert a.shape == b.shape, name
+        _close(a, b)
+        assert torch.equal(a, c), name
+
+
+def test_diffusion_finetune_step_on_the_card(cuda):
+    """The finetune's entry point on the card: DiffusionTrainer at
+    tiny-test (bf16 compute) takes a step on cuda from from_config, whose
+    zero output layers give the loss E||ε||² ≈ 1."""
+    from lgm_tpu_torch.diffusion.data import blender_condition
+    from lgm_tpu_torch.diffusion.pipeline import MVDreamPipeline
+    from lgm_tpu_torch.diffusion.train import DiffusionTrainer
+
+    rng = np.random.default_rng(0)
+    data = {"images": rng.uniform(0, 1, (4, 4, 32, 32, 3)).astype(np.float32),
+            "camera": np.stack([np.stack([blender_condition(10.0, 90.0 * f)
+                                          for f in range(4)])] * 4),
+            "prompts": ["a test object"] * 4}
+    pipe = MVDreamPipeline.from_config("tiny-test", device="cuda")
+    trainer = DiffusionTrainer(pipe, lr=1e-3, warmup=1, cond_drop=0.0)
+    m = trainer.train_step(data)
+    torch.cuda.synchronize()
+    assert all(p.is_cuda for p in trainer.optimizer.params)
+    assert 0.85 < float(m["loss"]) < 1.15
+    assert np.isfinite(float(m["gnorm"]))

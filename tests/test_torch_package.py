@@ -19,10 +19,11 @@ import lgm_tpu_torch
 for m in pkgutil.walk_packages(lgm_tpu_torch.__path__, "lgm_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-slice8 = ("lgm_tpu_torch.io.png", "lgm_tpu_torch.data.decode",
-          "lgm_tpu_torch.data.provider", "lgm_tpu_torch.parallel.dist",
-          "lgm_tpu_torch.utils.augment")
-print("MISSING", [m for m in slice8 if m not in sys.modules])
+required = ("lgm_tpu_torch.io.png", "lgm_tpu_torch.data.decode",
+            "lgm_tpu_torch.data.provider", "lgm_tpu_torch.parallel.dist",
+            "lgm_tpu_torch.utils.augment", "lgm_tpu_torch.diffusion.data",
+            "lgm_tpu_torch.diffusion.train")
+print("MISSING", [m for m in required if m not in sys.modules])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "lgm_tpu",
                                     "transformers", "cv2", "regex",
