@@ -56,13 +56,25 @@ checked against the counts each path must give):
   (``diffusion_train_cli``). The zero-initialised output layers that
   ``from_config`` gives the U-Net, as ``lgm_tpu`` does, are drawn from a
   seed here in every diffusion phase, so that ε and the gradients reach
-  every layer.
+  every layer;
+- the mesh converter (``lgm_tpu_torch.convert``) at lgm_tpu's default
+  depth and widths on the bench scene's 65,536 splats: the NeRF fit,
+  the mesh extraction and fit, the UV atlas, the texture fit and the
+  .glb, each stage timed (``convert``: K2 once a teacher view, 896; K2 on
+  a 128² and a 256² teacher view against its plain version; the
+  triangle rasterizer's candidate cap and its face ids against its CPU
+  path), and its command line in a subprocess, depth cut
+  (``convert_cli``);
+- the serving apps: the splat viewer at 512² over HTTP (``viewer_http``:
+  K2 once a frame, a served frame against ``render_views``' own) and the
+  upload app at LGM big (``app_http``: four PNG views POSTed twice, K1 16
+  and K2 180 a request, the served .ply against the forward's).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or outside a checkout, it exits non-zero and prints no
-result. Outputs of the inference and disk-data paths go to
+result. Outputs of the inference, disk-data and converter paths go to
 ``build/smoke/``.
 """
 
@@ -2512,6 +2524,413 @@ def phase_infer_cli(dev, root, ckpt):
     os.remove(ckpt)
 
 
+# The mesh converter at lgm_tpu's default depth and widths
+# (lgm_tpu/convert.py:512-523): its iterations of each stage, the density
+# grid and the face target. One K2 launch per teacher view.
+CONVERT_ITERS = {"nerf": 512, "mesh": 256, "texture": 128}
+CONVERT_GRID, CONVERT_FACES = 192, 50_000
+# trirast's candidate cap a tile (lgm_tpu/ops/trirast.py:46).
+TRIRAST_CAP = 1024
+# rasterize on the card against its CPU path on the same view: the edge
+# functions' products may contract to FMAs on the card, so a pixel on an
+# edge shared by two faces may go to the other one.
+RASTER_EQUAL_SHARE = 0.999
+# The viewer's orbit: frames served and their elevation.
+VIEWER_FRAMES, VIEWER_EL = 20, 15.0
+
+
+def method_clock(obj, names):
+    """A context in which spies on ``obj``'s methods ``names`` time each
+    call from a device synchronize before it to one after it and read the
+    peak device memory of the call: yields {name: {"s", "peak_gb"}}."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    @contextlib.contextmanager
+    def clock():
+        times = {}
+
+        def timed(fn, name):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                times[name] = {"s": time.perf_counter() - t0,
+                               "peak_gb": torch.cuda.max_memory_allocated()
+                               / 2**30}
+                return out
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                stack.enter_context(mock.patch.object(
+                    obj, name, timed(getattr(obj, name), name)))
+            yield times
+
+    return clock()
+
+
+def phase_convert(dev):
+    """The mesh converter as ``python -m lgm_tpu_torch.convert big`` runs
+    it, at lgm_tpu's default depth and widths, on the bench scene's 65,536
+    splats (seeded: LGM big with random weights makes noise): fit_nerf 512
+    iterations at 128², extract_mesh at 192³ to 50,000 faces, fit_mesh 256
+    at 256², the chart unwrap, fit_texture 128 at 256² into 1024², the
+    .glb. Each stage timed by spies (``method_clock``); K2's launches
+    counted (one a teacher view, 896); K2 on the first teacher render at
+    128² and at 256² against its plain version (the same bits again, and
+    within K2_ATOL), timed; fit_mesh's first rasterization: the candidate
+    cap's reach, and the same view rasterized on the CPU; the .glb read
+    back."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import convert
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.data.synthetic import sample_scene
+    from lgm_tpu_torch.io.mesh import load_glb
+    from lgm_tpu_torch.ops import trirast
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    g = sample_scene(np.random.default_rng(0), 65536)
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    out_path = os.path.join(work, "convert.glb")
+
+    teacher, rast = {}, {}
+    composite, rasterize = fs.composite, trirast.rasterize
+
+    def composite_spy(params, counts, tile_h, tile_w, tiles_x):
+        out = composite(params, counts, tile_h, tile_w, tiles_x)
+        teacher.setdefault(tile_w * tiles_x, (params, counts, tile_h,
+                                              tile_w, tiles_x, out))
+        return out
+
+    def rasterize_spy(clip, faces, image_size, **kw):
+        out = rasterize(clip, faces, image_size, **kw)
+        rast.setdefault("first", (clip.detach(), faces, image_size, kw, out))
+        return out
+
+    stages = ("fit_nerf", "extract_mesh", "fit_mesh", "unwrap_uv",
+              "fit_texture", "export")
+    t0 = time.perf_counter()
+    conv = convert.Converter(CONFIGS["big"], g, seed=0, device=str(dev))
+    fs.composite_fwd.launches = 0
+    with method_clock(conv, stages) as times, \
+            mock.patch.object(fs, "composite", composite_spy), \
+            mock.patch.object(trirast, "rasterize", rasterize_spy):
+        conv.run(out_path, nerf_iters=CONVERT_ITERS["nerf"],
+                 mesh_iters=CONVERT_ITERS["mesh"],
+                 tex_iters=CONVERT_ITERS["texture"],
+                 grid_resolution=CONVERT_GRID, target_faces=CONVERT_FACES)
+    wall_s = time.perf_counter() - t0
+    launches = fs.composite_fwd.launches
+    expected = sum(CONVERT_ITERS.values())
+    if launches != expected:
+        raise AssertionError(f"K2 launches {launches}, expected {expected}")
+
+    # K2 on the first teacher render of each size.
+    k2 = {}
+    with torch.inference_mode():
+        for S, (params, counts, th, tw, tiles_x, out) in sorted(
+                teacher.items()):
+            args = (params, counts, th, tw, tiles_x)
+            again = fs.composite_fwd(*args)
+            ref = fs.composite_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(again, out):
+                raise AssertionError(f"K2 teacher {S}²: two runs differ")
+            err = float((out - ref).abs().max())
+            if not err <= K2_ATOL:
+                raise AssertionError(f"K2 teacher {S}²: max abs err {err}")
+            w = fs.composite_work(*args)
+            b_ms, b_by = k2_bound(w, params.shape[2], counts, S)
+            k2[S] = dict(
+                image=S, tiles=int(params.shape[0]),
+                slots_total=int(counts.sum()), live_pairs=w["pairs"],
+                used_pairs=w["used"], max_abs_err=err, bitwise_repeat=True,
+                ms=cuda_ms(lambda: fs.composite_fwd(*args),
+                           launches=K1_LAUNCHES),
+                one_call_ms=cuda_ms(lambda: fs.composite_fwd(*args)),
+                plain_ms=cuda_ms(lambda: fs.composite_reference(*args),
+                                 reps=5),
+                bound_ms=b_ms, bound_by=b_by)
+    emit("convert_k2", teacher=list(k2.values()), tol=K2_ATOL)
+
+    # fit_mesh's first view: the candidate cap, and the CPU path.
+    clip, faces, S, kw, out = rast["first"]
+    cap = kw.get("max_faces_per_tile", TRIRAST_CAP)
+    tile_faces = out["tile_faces"]
+    cpu = trirast.rasterize(clip.cpu(), faces.cpu(), S, **kw)
+    fid = out["face_id"].cpu()
+    same = fid == cpu["face_id"]
+    share = float(same.float().mean())
+    bary_err = float((out["bary"].cpu() - cpu["bary"])[same].abs().max())
+    if share < RASTER_EQUAL_SHARE:
+        raise AssertionError(f"rasterize on the card vs CPU: {share} of "
+                             f"face ids equal < {RASTER_EQUAL_SHARE}")
+    emit("convert_trirast", image=S, faces=int(faces.shape[0]),
+         max_faces_per_tile=cap,
+         tile_candidates_max=int(tile_faces.max()),
+         tile_candidates_mean=float(tile_faces.float().mean()),
+         tiles_over_cap=int((tile_faces > cap).sum()),
+         candidates_dropped=int((tile_faces - cap).clamp_min(0).sum()),
+         covered_share=float((fid >= 0).float().mean()),
+         face_id_equal_share=share, bary_max_abs_err_where_equal=bary_err,
+         cpu_tile_candidates_equal=bool(torch.equal(
+             tile_faces.cpu(), cpu["tile_faces"])))
+
+    verts, faces_r, uv, tex = load_glb(out_path)
+    if not (len(verts) == len(conv.verts) and len(faces_r) == len(conv.faces)
+            and uv is not None and len(uv) == len(conv.uv)
+            and tex[:8] == b"\x89PNG\r\n\x1a\n"):
+        raise AssertionError("the .glb read back differs from the mesh")
+    losses = {k: [v[0], v[-1]] for k, v in conv.losses.items()}
+    if not all(np.isfinite(v).all() for v in conv.losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    emit("convert", splats=len(g), iters=CONVERT_ITERS,
+         grid_resolution=CONVERT_GRID, target_faces=CONVERT_FACES,
+         tex_size=int(conv.texture.shape[0]), wall_s=wall_s,
+         stages=times, loss_first_last=losses, verts=len(conv.verts),
+         faces=len(conv.faces), n_charts=conv.n_charts,
+         glb_mb=os.path.getsize(out_path) / 2**20,
+         glb=os.path.relpath(out_path, ROOT), k2_launches=launches)
+    return {"composite_fwd": launches}, k2
+
+
+def phase_convert_cli(dev):
+    """``python -m lgm_tpu_torch.convert big --test-path x.ply`` in a
+    subprocess on the card: the bench scene written with ``save_ply``, the
+    depth cut (32 / 16 / 8 iterations; ``convert`` runs the full depth);
+    the .glb must load."""
+    import sys
+
+    import numpy as np
+
+    from lgm_tpu_torch.data.synthetic import sample_scene
+    from lgm_tpu_torch.io.mesh import load_glb
+    from lgm_tpu_torch.io.ply import save_ply
+
+    ws = os.path.join(ROOT, "build", "smoke", "convert_cli")
+    os.makedirs(ws, exist_ok=True)
+    ply, glb = os.path.join(ws, "scene.ply"), os.path.join(ws, "scene.glb")
+    save_ply(sample_scene(np.random.default_rng(0), 65536)[None], ply)
+    cmd = [sys.executable, "-m", "lgm_tpu_torch.convert", "big",
+           "--test-path", ply, "--out", glb, "--nerf-iters", "32",
+           "--mesh-iters", "16", "--tex-iters", "8", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"convert CLI exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    verts, faces, uv, tex = load_glb(glb)
+    if not (len(faces) > 0 and uv is not None
+            and tex[:8] == b"\x89PNG\r\n\x1a\n"):
+        raise AssertionError("convert CLI: the .glb does not load")
+    emit("convert_cli", wall_s=wall_s, verts=len(verts), faces=len(faces),
+         glb=os.path.relpath(glb, ROOT), iters=[32, 16, 8])
+
+
+def _get(url, timeout=120):
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        body = r.read()
+        return body, dict(r.headers), (time.perf_counter() - t0) * 1e3
+
+
+def phase_viewer_http(dev):
+    """The splat viewer serving the bench scene at 512² on a free port in
+    a thread: the page, 20 frames around an orbit and one each of alpha and
+    depth, K2 once a frame exactly; X-Render-Ms and the round trip; one
+    served frame against ``render_views``' own output for its camera,
+    quantised as the viewer does (PNG: its pixels bit for bit; JPEG: the
+    bytes cv2 makes of them, bit for bit)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch.apps import viewer
+    from lgm_tpu_torch.io import png
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+    from lgm_tpu_torch.ops.gsplat.api import render_views
+    from lgm_tpu_torch.utils import camera
+
+    g, _ = bench_scene(dev)
+    state = viewer.ViewerState(g.cpu().numpy(), size=512, device=str(dev))
+    port = free_port()
+    httpd = ThreadingHTTPServer(("127.0.0.1", port),
+                                viewer._make_handler(state))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        page, _, _ = _get(url + "/")
+        if b"X-Render-Ms" not in page:
+            raise AssertionError("viewer page")
+        queries = [f"/render?el={VIEWER_EL}&az={az}&radius=1.5&fovy=49.1"
+                   for az in np.linspace(0, 360, VIEWER_FRAMES,
+                                         endpoint=False)]
+        queries += [queries[3] + "&mode=alpha", queries[3] + "&mode=depth"]
+        _get(url + queries[0])  # warm
+        fs.composite_fwd.launches = 0
+        render_ms, trip_ms, served = [], [], []
+        for q in queries:
+            body, headers, ms = _get(url + q)
+            render_ms.append(float(headers["X-Render-Ms"]))
+            trip_ms.append(ms)
+            served.append((body, headers["Content-Type"]))
+        launches = fs.composite_fwd.launches
+    finally:
+        httpd.shutdown()
+        thread.join()
+    if launches != len(queries):
+        raise AssertionError(f"viewer: K2 {launches} for {len(queries)} "
+                             "frames")
+    # Frame 3 against render_views for its camera.
+    az = float(np.linspace(0, 360, VIEWER_FRAMES, endpoint=False)[3])
+    cams = camera.build_camera_inputs(
+        camera.orbit_camera(VIEWER_EL, az, 1.5)[None], 49.1, 0.5, 2.5)
+    tan = float(np.tan(0.5 * np.deg2rad(49.1)))
+    with torch.inference_mode():
+        img = render_views(g[None], torch.as_tensor(
+            cams["cam_view"], device=dev)[None], 512, tan, dup=32)[
+            "image"][0, 0].cpu().numpy()
+    q8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    body, ctype = served[3]
+    if ctype == "image/png":
+        if not np.array_equal(png.decode_rgba(body)[0][..., :3], q8):
+            raise AssertionError("viewer: the served PNG differs")
+        jpeg_mean_err = None
+    else:
+        import cv2
+
+        ok, ref = cv2.imencode(".jpg", q8[..., ::-1])
+        if not (ok and body == ref.tobytes()):
+            raise AssertionError("viewer: the served JPEG differs")
+        dec = cv2.imdecode(np.frombuffer(body, np.uint8),
+                           cv2.IMREAD_COLOR)[..., ::-1]
+        jpeg_mean_err = float(np.abs(dec.astype(int) - q8).mean())
+    frame_ms = render_ms[:VIEWER_FRAMES]
+    emit("viewer_http", size=512, splats=int(g.shape[0]),
+         frames=len(queries), content_type=ctype,
+         k2_launches=launches, render_ms_median=median(frame_ms),
+         render_ms_min=min(frame_ms), render_ms_max=max(frame_ms),
+         round_trip_ms_median=median(trip_ms[:VIEWER_FRAMES]),
+         round_trip_ms_min=min(trip_ms[:VIEWER_FRAMES]),
+         round_trip_ms_max=max(trip_ms[:VIEWER_FRAMES]),
+         alpha_depth_render_ms=render_ms[VIEWER_FRAMES:],
+         served_frame_equal=True, jpeg_mean_abs_err_255=jpeg_mean_err)
+    return {"composite_fwd": launches / len(queries)}
+
+
+def phase_app_http(dev):
+    """The serving app at LGM ``big`` (seeded weights) on a free port in a
+    thread: four 256² RGBA PNG views POSTed as multipart twice (cold, then
+    warm), K1 16 and K2 180 a request exactly; the links followed: the
+    served .ply is, byte for byte, the .ply of ``infer.forward_gaussians``
+    on the same decoded views (cuDNN's deterministic algorithms on for the
+    phase, so two forwards give the same bits), and the orbit is there."""
+    import shutil
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import infer
+    from lgm_tpu_torch.apps import app
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.io import png
+    from lgm_tpu_torch.io.ply import save_ply
+    from lgm_tpu_torch.models.unet import MVAttention
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+    from lgm_tpu_torch.ops.mha import mha_fwd
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    opt = CONFIGS["big"]
+    t0 = time.perf_counter()
+    state = app.AppState(opt, resume=None, device=str(dev))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sites = sum(isinstance(m, MVAttention) for m in state.model.modules())
+    expected = {"mha_fwd": sites, "composite_fwd": 180}
+    port = free_port()
+    httpd = ThreadingHTTPServer(("127.0.0.1", port),
+                                app._make_stdlib_handler(state))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+    requests, counts = [], []
+    try:
+        for seed in (3, 4):
+            views = rgba_views(dev, seed, 4, 256, [0.0] * 4,
+                               [0.0, 90.0, 180.0, 270.0])
+            boundary = "lgmsmokeboundary"
+            body = b"".join(
+                f'--{boundary}\r\nContent-Disposition: form-data; '
+                f'name="v{i}"; filename="v{i}.png"\r\n'
+                f"Content-Type: image/png\r\n\r\n".encode()
+                + png.encode(v) + b"\r\n" for i, v in enumerate(views))
+            body += f"--{boundary}--\r\n".encode()
+            req = urllib.request.Request(
+                url + "/mv", data=body, method="POST", headers={
+                    "Content-Type":
+                    f"multipart/form-data; boundary={boundary}"})
+            mha_fwd.launches = fs.composite_fwd.launches = 0
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                reply = r.read().decode()
+            wall_s = time.perf_counter() - t0
+            got = {"mha_fwd": mha_fwd.launches,
+                   "composite_fwd": fs.composite_fwd.launches}
+            if got != expected or "done" not in reply:
+                raise AssertionError(f"app: launches {got}, expected "
+                                     f"{expected}; reply {reply[:300]}")
+            links = [part.split('"')[0] for part in
+                     reply.split('href="')[1:]]
+            ply, _, _ = _get(url + links[0])
+            video, _, video_ms = _get(url + links[1], timeout=600)
+            mv = np.stack([app.decode_view(png.encode(v), f"v{i}",
+                                           opt.input_size)
+                           for i, v in enumerate(views)])
+            ref_path = os.path.join(state.workdir, "expected.ply")
+            save_ply(infer.forward_gaussians(state.model, mv), ref_path)
+            with open(ref_path, "rb") as fh:
+                if fh.read() != ply:
+                    raise AssertionError("app: the served .ply is not the "
+                                         "forward's of the decoded views")
+            requests.append(dict(wall_s=wall_s, ply_mb=len(ply) / 2**20,
+                                 video=links[1], video_mb=len(video) / 2**20,
+                                 video_fetch_ms=video_ms))
+            counts.append(got)
+    finally:
+        httpd.shutdown()
+        thread.join()
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(state.workdir)
+    emit("app_http", preset="big", load_s=load_s, cold=requests[0],
+         warm=requests[1], launches_per_request=counts,
+         ply_equal_forward=True,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del state
+    torch.cuda.empty_cache()
+    return counts[-1]
+
+
 def median(xs):
     """The middle value (the upper one of an even count)."""
     return sorted(xs)[len(xs) // 2]
@@ -2599,6 +3018,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_infer_cli(dev, root, ckpt)
     phase_diffusion_train_cli(dev, root)
+    torch.cuda.empty_cache()
+    convert_launches, _ = phase_convert(dev)
+    torch.cuda.empty_cache()
+    phase_convert_cli(dev)
+    viewer_launches = phase_viewer_http(dev)
+    app_launches = phase_app_http(dev)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2611,6 +3036,7 @@ def main() -> int:
              image_to_3d_launches=image_launches["mha_fwd"],
              diffusion_shapes=k1_diffusion,
              diffusion_train_shapes=k1_train_shapes,
+             app_launches_per_request=app_launches["mha_fwd"],
              **{k: k1[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_fwd.cu",
@@ -2618,6 +3044,9 @@ def main() -> int:
              launches=launches["composite_fwd"],
              infer_launches=infer_launches["composite_fwd"],
              image_to_3d_launches=image_launches["composite_fwd"],
+             convert_launches=convert_launches["composite_fwd"],
+             viewer_launches_per_frame=viewer_launches["composite_fwd"],
+             app_launches_per_request=app_launches["composite_fwd"],
              **{k: k2[k] for k in keys}),
         dict(name="mha_bwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",

@@ -43,6 +43,21 @@ def log_alpha_min(like: torch.Tensor) -> torch.Tensor:
                                   device=like.device))
 
 
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z) [..., 4] -> matrix [..., 3, 3] by the
+    unit-quat formula on the raw values, as ``project_gaussians`` computes
+    R inline (``lgm_tpu/ops/gsplat/projection.py::quat_to_rotmat``)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
+
+
 def project_gaussians(gaussians: torch.Tensor, view: torch.Tensor,
                       image_size: int, tan_half_fov: float,
                       scale_modifier: float = 1.0) -> Projected:

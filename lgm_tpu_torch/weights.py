@@ -23,6 +23,10 @@ transformers' Flax CLIP names, giving the state dicts of the port's
 finetune state (parameters, Adam's moments, the EMA) into the port's
 trainer state, through the same U-Net name map.
 
+``nerf_params_to_torch`` maps the mesh converter's Flax NeRF field
+(``grid/table``, ``mlp1``, ``mlp2``) into the state dict of the port's
+``convert.NerfField``.
+
 Orbax checkpoints written by ``lgm_tpu`` need JAX to read and are not
 loaded here (``scripts/dckpt_to_torch.py`` converts a finetune's).
 """
@@ -304,3 +308,18 @@ def load_state_dict_into(model: torch.nn.Module,
 def load_reference_weights(model: torch.nn.Module, path: str) -> None:
     """``--resume``: load a reference checkpoint file into ``model``."""
     load_state_dict_into(model, load_state_dict_file(path))
+
+
+def nerf_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``lgm_tpu.convert``'s NeRF field parameters (``{"grid": {"table"},
+    "mlp1": {"kernel", "bias"}, "mlp2": ...}``, numpy or JAX leaves) ->
+    the state dict of ``lgm_tpu_torch.convert.NerfField``: the table as it
+    is, each Dense ``kernel [in, out]`` as ``Linear.weight [out, in]``."""
+    sd = {"grid.table": torch.tensor(np.asarray(params["grid"]["table"],
+                                                np.float32))}
+    for name in ("mlp1", "mlp2"):
+        sd[f"{name}.weight"] = torch.tensor(
+            np.asarray(params[name]["kernel"], np.float32).T.copy())
+        sd[f"{name}.bias"] = torch.tensor(
+            np.asarray(params[name]["bias"], np.float32))
+    return sd

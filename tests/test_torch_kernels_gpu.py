@@ -899,3 +899,69 @@ def test_diffusion_finetune_step_on_the_card(cuda):
     assert all(p.is_cuda for p in trainer.optimizer.params)
     assert 0.85 < float(m["loss"]) < 1.15
     assert np.isfinite(float(m["gnorm"]))
+
+
+# The mesh converter on the card (the trirast rasterizer is plain PyTorch;
+# its teacher renders are K2). rasterize on CUDA against its CPU path: the
+# edge functions' products may contract to FMAs on the card, so a pixel on
+# a shared edge may go to the other face; at least 99.9% of face ids equal,
+# and where they are, barycentrics within 1e-4.
+RASTER_EQUAL_SHARE = 0.999
+
+
+def _sphere_mesh(n=28, r=0.6, seed=3):
+    from lgm_tpu_torch import native
+
+    x = np.linspace(-1, 1, n)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    v, f = native.marching_cubes(
+        (10 * (r - np.sqrt(X**2 + Y**2 + Z**2))).astype(np.float32), 0.0)
+    v = (v / (n - 1) * 2 - 1).astype(np.float32)
+    f = f[np.random.default_rng(seed).permutation(len(f))]
+    return v, f
+
+
+@pytest.mark.parametrize("S,cap", [(256, 1024), (128, 64)])
+def test_rasterize_on_the_card_matches_cpu(cuda, S, cap):
+    from lgm_tpu_torch.ops import trirast
+
+    v, f = _sphere_mesh()
+    vp = camera.build_camera_inputs(camera.orbit_camera(
+        15.0, 35.0, 1.5)[None], FOVY, 0.5, 2.5)["cam_view_proj"][0]
+    clip = trirast.project_vertices(torch.as_tensor(v),
+                                    torch.as_tensor(vp, dtype=torch.float32))
+    faces = torch.as_tensor(f, dtype=torch.int64)
+    ref = trirast.rasterize(clip, faces, S, max_faces_per_tile=cap)
+    out = trirast.rasterize(clip.to(cuda), faces.to(cuda), S,
+                            max_faces_per_tile=cap)
+    fid, ref_fid = out["face_id"].cpu(), ref["face_id"]
+    same = fid == ref_fid
+    assert same.float().mean().item() >= RASTER_EQUAL_SHARE
+    if cap == 1024:  # a cap of 64 drops most of the covering faces
+        assert (ref_fid >= 0).float().mean().item() > 0.2
+    torch.testing.assert_close(out["tile_faces"].cpu(), ref["tile_faces"])
+    err = (out["bary"].cpu() - ref["bary"])[same].abs().max().item()
+    assert err <= 1e-4
+
+
+def test_tiny_conversion_on_the_card(cuda, tmp_path):
+    """A tiny Converter.run on the card: one K2 launch per teacher view
+    (fit_nerf's, fit_mesh's and fit_texture's iterations), a .glb that
+    loads."""
+    from lgm_tpu_torch.config import get_config
+    from lgm_tpu_torch.convert import Converter
+    from lgm_tpu_torch.data.synthetic import sample_scene
+    from lgm_tpu_torch.io.mesh import load_glb
+
+    g = sample_scene(np.random.default_rng(0), 4096)
+    conv = Converter(get_config("nano"), g, seed=0, device="cuda")
+    fs.composite_fwd.launches = 0
+    out = str(tmp_path / "m.glb")
+    conv.run(out, nerf_iters=64, mesh_iters=8, tex_iters=8,
+             grid_resolution=64, target_faces=5000)
+    assert fs.composite_fwd.launches == 64 + 8 + 8
+    verts, faces, uv, tex = load_glb(out)
+    assert len(verts) == len(conv.verts) and len(faces) == len(conv.faces)
+    assert uv is not None and tex[:8] == b"\x89PNG\r\n\x1a\n"
+    for stage in ("nerf", "mesh", "texture"):
+        assert np.isfinite(conv.losses[stage]).all()

@@ -22,7 +22,11 @@ import chip_smoke
 required = ("lgm_tpu_torch.io.png", "lgm_tpu_torch.data.decode",
             "lgm_tpu_torch.data.provider", "lgm_tpu_torch.parallel.dist",
             "lgm_tpu_torch.utils.augment", "lgm_tpu_torch.diffusion.data",
-            "lgm_tpu_torch.diffusion.train")
+            "lgm_tpu_torch.diffusion.train", "lgm_tpu_torch.convert",
+            "lgm_tpu_torch.ops.hashgrid", "lgm_tpu_torch.ops.raymarch",
+            "lgm_tpu_torch.ops.trirast", "lgm_tpu_torch.io.mesh",
+            "lgm_tpu_torch.native", "lgm_tpu_torch.apps.app",
+            "lgm_tpu_torch.apps.viewer")
 print("MISSING", [m for m in required if m not in sys.modules])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "lgm_tpu",
