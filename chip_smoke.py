@@ -44,7 +44,13 @@ checked against the counts each path must give):
   and the checkpoint, then 2 steps with ``--zero1 1``; ``train_disk``:
   the exact launches of K1, K1ᵇ, K2 and K2ᵇ a step, K1, K1ᵇ and K2ᵇ on
   the first step's own inputs), and the ``infer`` CLI in a subprocess on
-  four PNG views with that checkpoint (``infer_cli``);
+  four PNG views with that checkpoint, then its entry point in this
+  process on four committed 256² JPEG views (``infer_cli``: K1 16, K2
+  180, the Gaussians the array path's on the same decoded views);
+- JPEG inputs: the port's baseline decoder (``io/jpeg.py``, host C++)
+  built here and held to the committed digests of cv2's decode of every
+  fixture in ``tests/fixtures/jpeg/``, every refused class raising, the
+  decode time of a 512² and a 1024² 4:2:0 file (``jpeg_codec``);
 - the multi-view diffusion finetune: K1 and K1ᵇ at its level-0 shapes
   (BH 20, S 4096 and 5120, D 64; ``k1_bwd_diffusion``), then
   ``DiffusionTrainer`` at MVDream's and at ImageDream's published widths
@@ -64,11 +70,14 @@ checked against the counts each path must give):
   a 128² and a 256² teacher view against its plain version; the
   triangle rasterizer's candidate cap and its face ids against its CPU
   path), and its command line in a subprocess, depth cut
-  (``convert_cli``);
+  (``convert_cli``), and ``scripts/eval_convert_quality_torch.py`` at its
+  quick budget on the torus (``convert_quality``: chamfer against the
+  analytic surface, PSNR of the textured mesh against the Gaussians);
 - the serving apps: the splat viewer at 512² over HTTP (``viewer_http``:
   K2 once a frame, a served frame against ``render_views``' own) and the
-  upload app at LGM big (``app_http``: four PNG views POSTed twice, K1 16
-  and K2 180 a request, the served .ply against the forward's).
+  upload app at LGM big (``app_http``: four PNG views POSTed twice, then
+  the four JPEG views, K1 16 and K2 180 a request, the served .ply
+  against the forward's).
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
@@ -2203,6 +2212,62 @@ def _timed_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# The committed JPEG fixtures and their manifest (scripts/
+# make_jpeg_fixtures.py): the SHA-256 of cv2's decode of each file taken,
+# the class of each file refused. view0-view3 are a seeded render at
+# azimuths 0/90/180/270, 256²: the JPEG inputs of infer_cli and app_http.
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+JPEG_VIEWS = [os.path.join(JPEG_FIXTURES, f"view{i}.jpg") for i in range(4)]
+
+
+def phase_jpeg_codec():
+    """The port's JPEG decoder built on this host (no image library) and
+    held to the manifest: every fixture it takes decodes to the SHA-256
+    of cv2's decode (tests/test_torch_jpeg.py checks the manifest against
+    cv2), every refused class raises ``JpegError``; the decode ms of the
+    512² and 1024² 4:2:0 fixtures (median of 9, one thread); and whether
+    ``cv2`` imports on this host (the port does not need it)."""
+    import hashlib
+
+    from lgm_tpu_torch.io import jpeg
+
+    t0 = time.perf_counter()
+    jpeg.load_library()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(JPEG_FIXTURES, "MANIFEST.json")) as fh:
+        manifest = json.load(fh)
+    for name, entry in manifest["taken"].items():
+        arr = jpeg.imread(os.path.join(JPEG_FIXTURES, name))
+        digest = hashlib.sha256(arr.tobytes()).hexdigest()
+        if digest != entry["sha256"] or list(arr.shape) != entry["shape"]:
+            raise AssertionError(f"jpeg: {name} decodes to {arr.shape} "
+                                 f"{digest[:12]}, not cv2's")
+    refused = {}
+    for name, cls in manifest["refused"].items():
+        try:
+            jpeg.imread(os.path.join(JPEG_FIXTURES, name))
+        except jpeg.JpegError as exc:
+            refused[cls] = str(exc)
+        else:
+            raise AssertionError(f"jpeg: {name} ({cls}) was not refused")
+    decode_ms = {}
+    for name in ("bench512", "bench1024"):
+        with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as fh:
+            data = fh.read()
+        jpeg.decode(data)
+        decode_ms[name] = median([_timed_ms(lambda: jpeg.decode(data))
+                                  for _ in range(9)])
+    probe = subprocess.run([sys.executable, "-c",
+                            "import cv2; print(cv2.__version__)"],
+                           capture_output=True, text=True, timeout=120)
+    emit("jpeg_codec", build_s=build_s, taken=len(manifest["taken"]),
+         digests_equal_cv2=True, refused=refused, decode_ms=decode_ms,
+         mpixel_per_s={k: (int(k[5:]) ** 2 / 1e6) / (ms / 1e3)
+                       for k, ms in decode_ms.items()},
+         cv2_on_host=probe.stdout.strip() if probe.returncode == 0
+         else None)
+
+
 def phase_disk_dataset(dev):
     """An LVIS-layout dataset written into ``build/smoke/lvis``: 3 x the
     batch of scenes (16 train and 8 test at bs 8), 12 views each at the
@@ -2517,11 +2582,69 @@ def phase_infer_cli(dev, root, ckpt):
     if video[0].endswith(".npy"):
         frames = list(np.load(os.path.join(ws, video[0]),
                               mmap_mode="r").shape)
+    jpeg_run = infer_jpeg(dev, ckpt, os.path.join(ws, "jpeg"))
     emit("infer_cli", scene=os.path.relpath(scene, ROOT), wall_s=wall_s,
          ply=os.path.relpath(ply, ROOT), ply_gaussians=len(g),
          video=video[0], frames=frames,
-         checkpoint=os.path.relpath(ckpt, ROOT))
+         checkpoint=os.path.relpath(ckpt, ROOT), jpeg=jpeg_run)
     os.remove(ckpt)
+    return jpeg_run["launches"]
+
+
+def infer_jpeg(dev, ckpt, ws):
+    """``infer.main(["big", "--mv-images", view0.jpg, ...])`` in this
+    process on the committed JPEG views with ``ckpt``: K1 16 and K2 180
+    exactly, and the .ply byte for byte that of the array path, the same
+    weights' ``forward_gaussians`` on the views decoded here (BGR / 255
+    -> RGB, INTER_AREA to the input size), cuDNN's deterministic
+    algorithms on for both."""
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import infer
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.io import jpeg
+    from lgm_tpu_torch.io.ply import save_ply
+    from lgm_tpu_torch.models.unet import MVAttention
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+    from lgm_tpu_torch.ops.mha import mha_fwd
+    from lgm_tpu_torch.utils.resize import resize
+
+    opt = CONFIGS["big"]
+    os.makedirs(ws, exist_ok=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mha_fwd.launches = fs.composite_fwd.launches = 0
+        t0 = time.perf_counter()
+        infer.main(["big", "--mv-images", *JPEG_VIEWS, "--resume", ckpt,
+                    "--workspace", ws, "--device", dev.type])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        got = {"mha_fwd": mha_fwd.launches,
+               "composite_fwd": fs.composite_fwd.launches}
+        model = infer.load_model(opt, ckpt, str(dev))
+        sites = sum(isinstance(m, MVAttention) for m in model.modules())
+        expected = {"mha_fwd": sites, "composite_fwd": 180}
+        if got != expected:
+            raise AssertionError(f"infer on JPEG views: launches {got}, "
+                                 f"expected {expected}")
+        views = np.stack([resize(
+            jpeg.imread(p).astype(np.float32)[..., [2, 1, 0]] / 255.0,
+            (opt.input_size, opt.input_size), "area") for p in JPEG_VIEWS])
+        ref = os.path.join(ws, "array_path.ply")
+        save_ply(infer.forward_gaussians(model, views), ref)
+        del model
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with open(ref, "rb") as a, open(os.path.join(ws, "view0.ply"),
+                                    "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("infer on JPEG views: the .ply is not the "
+                                 "array path's")
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall_s, launches=got, ply_equal_array_path=True,
+                views=[os.path.relpath(p, ROOT) for p in JPEG_VIEWS])
 
 
 # The mesh converter at lgm_tpu's default depth and widths
@@ -2739,6 +2862,45 @@ def phase_convert_cli(dev):
          glb=os.path.relpath(glb, ROOT), iters=[32, 16, 8])
 
 
+# convert_quality's sanity bounds at the quick budget: an order of
+# magnitude around lgm_tpu's default-budget torus (chamfer 0.061, 18.4 dB;
+# benchmarks/convert_quality_torus.jsonl), enough to catch a broken
+# stage. The reference-budget rows are held to lgm_tpu's in quality/.
+QUICK_CHAMFER_MAX, QUICK_PSNR_MIN = 0.1, 12.0
+
+
+def phase_convert_quality(dev):
+    """``scripts/eval_convert_quality_torch.py`` at its quick budget
+    (128 / 96 / 64 iterations, 128 grid) on the torus of 6,000 Gaussians:
+    chamfer against the analytic surface, PSNR of the textured mesh
+    against the Gaussian renders at 4 held-out poses, and seconds; K2
+    launched for the teacher views."""
+    import importlib.util
+
+    import numpy as np
+
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    spec = importlib.util.spec_from_file_location(
+        "eval_convert_quality_torch",
+        os.path.join(ROOT, "scripts", "eval_convert_quality_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    fs.composite_fwd.launches = 0
+    t0 = time.perf_counter()
+    row = script.evaluate("torus", "quick", device=str(dev))
+    wall_s = time.perf_counter() - t0
+    launches = fs.composite_fwd.launches
+    if not (row["n_faces"] > 0 and launches > 0
+            and np.isfinite([row["chamfer"], row["psnr_mesh_vs_gs"]]).all()
+            and row["chamfer"] < QUICK_CHAMFER_MAX
+            and row["psnr_mesh_vs_gs"] > QUICK_PSNR_MIN):
+        raise AssertionError(f"convert_quality: {row}, K2 {launches}")
+    emit("convert_quality", wall_s=wall_s, k2_launches=launches,
+         chamfer_max=QUICK_CHAMFER_MAX, psnr_min=QUICK_PSNR_MIN, **row)
+    return {"composite_fwd": launches}
+
+
 def _get(url, timeout=120):
     import urllib.request
 
@@ -2838,7 +3000,8 @@ def phase_viewer_http(dev):
 def phase_app_http(dev):
     """The serving app at LGM ``big`` (seeded weights) on a free port in a
     thread: four 256² RGBA PNG views POSTed as multipart twice (cold, then
-    warm), K1 16 and K2 180 a request exactly; the links followed: the
+    warm), then the four committed 256² JPEG views, K1 16 and K2 180 a
+    request exactly; the links followed: the
     served .ply is, byte for byte, the .ply of ``infer.forward_gaussians``
     on the same decoded views (cuDNN's deterministic algorithms on for the
     phase, so two forwards give the same bits), and the orbit is there."""
@@ -2876,15 +3039,22 @@ def phase_app_http(dev):
     url = f"http://127.0.0.1:{port}"
     requests, counts = [], []
     try:
-        for seed in (3, 4):
-            views = rgba_views(dev, seed, 4, 256, [0.0] * 4,
-                               [0.0, 90.0, 180.0, 270.0])
+        for seed in (3, 4, "jpeg"):
+            if seed == "jpeg":
+                ext, parts = "jpg", []
+                for path in JPEG_VIEWS:
+                    with open(path, "rb") as fh:
+                        parts.append(fh.read())
+            else:
+                ext = "png"
+                parts = [png.encode(v) for v in rgba_views(
+                    dev, seed, 4, 256, [0.0] * 4, [0.0, 90.0, 180.0, 270.0])]
             boundary = "lgmsmokeboundary"
             body = b"".join(
                 f'--{boundary}\r\nContent-Disposition: form-data; '
-                f'name="v{i}"; filename="v{i}.png"\r\n'
-                f"Content-Type: image/png\r\n\r\n".encode()
-                + png.encode(v) + b"\r\n" for i, v in enumerate(views))
+                f'name="v{i}"; filename="v{i}.{ext}"\r\n'
+                f"Content-Type: image/{ext}\r\n\r\n".encode()
+                + data + b"\r\n" for i, data in enumerate(parts))
             body += f"--{boundary}--\r\n".encode()
             req = urllib.request.Request(
                 url + "/mv", data=body, method="POST", headers={
@@ -2904,9 +3074,8 @@ def phase_app_http(dev):
                      reply.split('href="')[1:]]
             ply, _, _ = _get(url + links[0])
             video, _, video_ms = _get(url + links[1], timeout=600)
-            mv = np.stack([app.decode_view(png.encode(v), f"v{i}",
-                                           opt.input_size)
-                           for i, v in enumerate(views)])
+            mv = np.stack([app.decode_view(data, f"v{i}", opt.input_size)
+                           for i, data in enumerate(parts)])
             ref_path = os.path.join(state.workdir, "expected.ply")
             save_ply(infer.forward_gaussians(state.model, mv), ref_path)
             with open(ref_path, "rb") as fh:
@@ -2923,7 +3092,7 @@ def phase_app_http(dev):
         torch.backends.cudnn.deterministic = deterministic
         shutil.rmtree(state.workdir)
     emit("app_http", preset="big", load_s=load_s, cold=requests[0],
-         warm=requests[1], launches_per_request=counts,
+         warm=requests[1], jpeg=requests[2], launches_per_request=counts,
          ply_equal_forward=True,
          peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
     del state
@@ -3012,16 +3181,19 @@ def main() -> int:
     finetune_launches = {name: phase_diffusion_train(dev, name)
                          for name in ("mvdream", "imagedream")}
     phase_png_codec(dev)
+    phase_jpeg_codec()
     root = phase_disk_dataset(dev)
     phase_loader(dev, root)
     disk_launches, ckpt = phase_train_disk(dev, root)
     torch.cuda.empty_cache()
-    phase_infer_cli(dev, root, ckpt)
+    infer_jpeg_launches = phase_infer_cli(dev, root, ckpt)
     phase_diffusion_train_cli(dev, root)
     torch.cuda.empty_cache()
     convert_launches, _ = phase_convert(dev)
     torch.cuda.empty_cache()
     phase_convert_cli(dev)
+    quality_launches = phase_convert_quality(dev)
+    torch.cuda.empty_cache()
     viewer_launches = phase_viewer_http(dev)
     app_launches = phase_app_http(dev)
 
@@ -3037,6 +3209,7 @@ def main() -> int:
              diffusion_shapes=k1_diffusion,
              diffusion_train_shapes=k1_train_shapes,
              app_launches_per_request=app_launches["mha_fwd"],
+             infer_jpeg_launches=infer_jpeg_launches["mha_fwd"],
              **{k: k1[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_fwd.cu",
@@ -3047,6 +3220,8 @@ def main() -> int:
              convert_launches=convert_launches["composite_fwd"],
              viewer_launches_per_frame=viewer_launches["composite_fwd"],
              app_launches_per_request=app_launches["composite_fwd"],
+             infer_jpeg_launches=infer_jpeg_launches["composite_fwd"],
+             convert_quality_launches=quality_launches["composite_fwd"],
              **{k: k2[k] for k in keys}),
         dict(name="mha_bwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",

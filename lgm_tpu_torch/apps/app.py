@@ -7,10 +7,10 @@ and K2 on the card: K1 16 and K2 180 a request at ``big``), and the
 diffusion front-end once where a diffusers-layout directory is given.
 
 The front end served is the stdlib HTTP one: an upload form for four
-prepared PNG views (decoded by ``io/png.py`` with ``cv2.imdecode``'s
-pixels, composited over white, resized as ``cv2.resize`` does); the
-response links the ``.ply`` and the orbit (``.mp4`` where ``cv2``
-imports, else ``<stem>.frames.npy``). lgm_tpu's gradio UI is not ported
+prepared PNG or JPEG views (decoded by ``io/image.py`` with
+``cv2.imdecode``'s pixels, composited over white, resized as
+``cv2.resize`` does); the response links the ``.ply`` and the orbit
+(``.mp4`` where ``cv2`` imports, else ``<stem>.frames.npy``). lgm_tpu's gradio UI is not ported
 yet: where ``gradio`` imports, ``main`` says so and serves the form.
 ``rembg`` is absent on the hosts the port runs on, so ``_carve`` keeps
 lgm_tpu's fallback, the image's own alpha.
@@ -35,7 +35,8 @@ import numpy as np
 
 from lgm_tpu_torch import infer
 from lgm_tpu_torch.config import CONFIGS, Options
-from lgm_tpu_torch.io import png
+from lgm_tpu_torch.io import ImageError
+from lgm_tpu_torch.io import image as imageio
 from lgm_tpu_torch.utils.image import mv_grid_2x2, recenter, rgba_to_rgb_white
 from lgm_tpu_torch.utils.resize import resize
 
@@ -136,7 +137,7 @@ class AppState:
 _FORM = """<!doctype html><html><body style="font-family:monospace">
 <h2>lgm_tpu</h2>
 <form method=post enctype=multipart/form-data action=/mv>
-  four PNG views (az 0/90/180/270):
+  four PNG or JPEG views (az 0/90/180/270):
   <input type=file name=v0><input type=file name=v1>
   <input type=file name=v2><input type=file name=v3>
   <input type=submit value="reconstruct">
@@ -146,15 +147,12 @@ _FORM = """<!doctype html><html><body style="font-family:monospace">
 
 
 def decode_view(data: bytes, name: str, size: int) -> np.ndarray:
-    """An uploaded PNG -> [size, size, 3] RGB float over white, as
-    lgm_tpu's handler makes it from ``cv2.imdecode(IMREAD_UNCHANGED)``
+    """An uploaded PNG or JPEG -> [size, size, 3] RGB float over white,
+    as lgm_tpu's handler makes it from ``cv2.imdecode(IMREAD_UNCHANGED)``
     (straight alpha composited, then ``cv2.resize``, linear). Raises
-    ``png.PngError`` naming ``name`` for a part that is not a PNG."""
-    if data[:8] != png.SIGNATURE:
-        kind = "JPEG" if data[:2] == b"\xff\xd8" else "an unknown format"
-        raise png.PngError(f"{name} is {kind}, not a PNG: only PNG inputs "
-                           "are read")
-    arr = png.decode_cv2(data)
+    ``ImageError`` naming ``name`` for a part that is neither, or that the
+    reader refuses."""
+    arr = imageio.decode_cv2(data, name)
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     img = arr.astype(np.float32) / 255.0
@@ -219,7 +217,7 @@ def _make_stdlib_handler(state: AppState):
                 try:
                     imgs.append(decode_view(data, name,
                                             state.opt.input_size))
-                except png.PngError as exc:
+                except ImageError as exc:
                     return self._ok(f"error: {exc}", "text/plain")
             if len(imgs) != 4:
                 return self._ok("need exactly 4 views", "text/plain")

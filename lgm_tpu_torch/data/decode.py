@@ -2,14 +2,15 @@
 
 Port of ``lgm_tpu/native.py::load_views`` (``native/dataload.cpp``),
 which the card host cannot build (it links libpng and libjpeg). Each view
-is read by ``io/png.py``, composited onto white and resized bilinearly to
-up to two square sizes, with the float32 arithmetic of
-``dataload.cpp::composite`` (``:141-156``) and ``resize_bilinear``
+is read by ``io/image.py`` (PNG or JPEG by the magic bytes, as
+``dataload.cpp::decode_file`` tells them apart), composited onto white
+and resized bilinearly to up to two square sizes, with the float32
+arithmetic of ``dataload.cpp::composite`` (``:141-156``) and ``resize_bilinear``
 (``:160-204``): source coordinate ``(d + 0.5) * (src / dst) - 0.5`` in
 float32 (not ``utils/resize.py``'s copy of cv2 5.0, which takes it in
 float64), edges clamped, the four taps summed in the C++ order. Views
-decode on a thread pool: ``zlib``, the C++ unfilter and numpy release
-the GIL.
+decode on a thread pool: ``zlib``, the C++ unfilter and JPEG decoder and
+numpy release the GIL.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from lgm_tpu_torch.io import png
+from lgm_tpu_torch.io import ImageError, image
 
 _F32 = np.float32
 _INV_255 = _F32(1.0) / _F32(255.0)
@@ -67,8 +68,8 @@ def resize_bilinear(src: np.ndarray, size: int) -> np.ndarray:
 
 def _load_one(path: str, size_a: int, size_b: int):
     try:
-        rgba, has_alpha = png.read_rgba(path)
-    except png.PngError:
+        rgba, has_alpha = image.read_rgba(path)
+    except ImageError:
         return None
     rgb, mask = composite(rgba, has_alpha)
     out = []
@@ -80,9 +81,10 @@ def _load_one(path: str, size_a: int, size_b: int):
 
 def load_views(paths: List[str], size_a: int, size_b: int = 0,
                n_threads: int = 4):
-    """Decode ``len(paths)`` PNGs; white-background composite; bilinear
-    resize to ``size_a`` (and ``size_b`` when > 0). Returns (rgb_a [n, Sa,
-    Sa, 3], mask_a [n, Sa, Sa], rgb_b | None, mask_b | None, ok [n] bool).
+    """Decode ``len(paths)`` PNGs or JPEGs; white-background composite;
+    bilinear resize to ``size_a`` (and ``size_b`` when > 0). Returns
+    (rgb_a [n, Sa, Sa, 3], mask_a [n, Sa, Sa], rgb_b | None, mask_b |
+    None, ok [n] bool).
     Unreadable entries have ``ok`` False and zero pixels (callers skip and
     pad, the provider contract)."""
     n = len(paths)

@@ -44,7 +44,7 @@ from torch.utils.data import DataLoader, Dataset, Sampler
 from lgm_tpu_torch.config import Options
 from lgm_tpu_torch.data.decode import load_views
 from lgm_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
-from lgm_tpu_torch.io import png
+from lgm_tpu_torch.io import jpeg, png
 from lgm_tpu_torch.utils import camera
 from lgm_tpu_torch.utils.augment import grid_distortion, orbit_camera_jitter
 from lgm_tpu_torch.utils.resize import resize
@@ -407,8 +407,10 @@ class Loader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  workers: int = 8, rank: int = 0, ranks: int = 1,
                  pin_memory: bool = False, endless: bool = False):
-        # The C++ unfilter is built here, before any worker starts.
+        # The C++ unfilter and JPEG decoder are built here, before any
+        # worker starts.
         png.load_library()
+        jpeg.load_library()
         self.sampler = BatchSampler(len(dataset), batch_size, shuffle, rank,
                                     ranks, endless)
         if not endless:

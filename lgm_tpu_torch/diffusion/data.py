@@ -19,9 +19,10 @@ Two sources:
   launch a view, B·F a batch);
 - ``LVISMVData``: the LVIS disk layout (``NNN.png`` + ``NNN.npy``
   {elevation, azimuth, radius} a view), the F views nearest an evenly
-  spaced azimuth ring, decoded by ``io/png.py`` and composited on white
-  with the f32 arithmetic of ``lgm_tpu``'s native decoder, resized as
-  ``cv2.INTER_AREA`` does (``utils/resize.py``) where the size differs.
+  spaced azimuth ring, decoded by ``io/image.py`` (PNG or JPEG) and
+  composited on white with the f32 arithmetic of ``lgm_tpu``'s native
+  decoder, resized as ``cv2.INTER_AREA`` does (``utils/resize.py``)
+  where the size differs.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 from lgm_tpu_torch.data.decode import composite
 from lgm_tpu_torch.data.synthetic import sample_scene
-from lgm_tpu_torch.io import png
+from lgm_tpu_torch.io import image
 from lgm_tpu_torch.ops.gsplat.api import render_views
 from lgm_tpu_torch.utils import camera
 from lgm_tpu_torch.utils.resize import resize
@@ -150,8 +151,8 @@ class LVISMVData:
     def _read_composited(path: str) -> np.ndarray:
         """White-background RGB [H, W, 3] in f32: ``rgb * a + (1 - a)``
         from the 8-bit values over 255 (``lgm_tpu``'s native decode and
-        composite); raises ``png.PngError`` for an unreadable file."""
-        return composite(*png.read_rgba(path))[0]
+        composite); raises ``ImageError`` for an unreadable file."""
+        return composite(*image.read_rgba(path))[0]
 
     def _load_scene(self, uid: str, rng: np.random.Generator):
         views = []

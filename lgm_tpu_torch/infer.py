@@ -13,13 +13,15 @@ Then the LGM forward -> ``.ply`` -> a 180-frame orbit at the preset's
 output size (flatsort, dup 32, with depth; kernel K2 per frame on the
 card; K1 in the U-Nets).
 
-Input files are PNGs, read by the port's own reader (``io/png.py``) with
+Input files are PNGs or baseline JPEGs, read by the port's own readers
+(``io/image.py``: ``io/png.py``, ``io/jpeg.py``) with
 ``cv2.imread(..., IMREAD_UNCHANGED)``'s pixels, so the CLI runs where
-``cv2`` is absent (the card host); any other format raises an error that
-names it (lgm_tpu reads JPEG through ``cv2``). ``image_to_views`` and
-``process`` take arrays. ``process`` writes the orbit as mp4 through OpenCV
-where ``cv2`` imports; otherwise the frames go to ``<stem>.frames.npy``
-(uint8 [F, S, S, 3]), and the path written is printed either way.
+``cv2`` is absent; any other format, and a JPEG the reader refuses
+(progressive, arithmetic-coded, 12-bit, CMYK), raises an error that names
+it. ``image_to_views`` and ``process`` take arrays. ``process`` writes the
+orbit as mp4 through OpenCV where ``cv2`` imports; otherwise the frames
+go to ``<stem>.frames.npy`` (uint8 [F, S, S, 3]), and the path written is
+printed either way.
 
 Run: python -m lgm_tpu_torch.infer big --mv-images a.png b.png c.png d.png
          --workspace out [--resume model.safetensors] [--device cuda]
@@ -39,7 +41,7 @@ import torch
 
 from lgm_tpu_torch.config import CONFIGS, Options
 from lgm_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
-from lgm_tpu_torch.io import png
+from lgm_tpu_torch.io import image as imageio
 from lgm_tpu_torch.io.ply import save_ply
 from lgm_tpu_torch.models.lgm import LGM
 from lgm_tpu_torch.models.unet import use_full_float32
@@ -63,7 +65,7 @@ def resolve_device(device: str) -> torch.device:
 def _load_rgba(path: str, size: int) -> np.ndarray:
     """[size, size, 3] float RGB on white bg (RGBA composited over white),
     resized as ``cv2.INTER_AREA`` does."""
-    img = png.imread(path).astype(np.float32) / 255.0
+    img = imageio.imread(path).astype(np.float32) / 255.0
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     if img.shape[-1] == 4:
@@ -81,7 +83,7 @@ def remove_background(path: str) -> Optional[np.ndarray]:
         import rembg
     except ImportError:
         return None
-    bgr = png.imread(path)
+    bgr = imageio.imread(path)
     if bgr.ndim == 2:
         bgr = np.stack([bgr] * 3, axis=-1)
     out = rembg.remove(bgr[..., :3], session=rembg.new_session())
@@ -278,7 +280,7 @@ def main(argv=None):
 
         image = remove_background(ns.image)
         if image is None:
-            image = png.imread(ns.image).astype(np.float32) / 255.0
+            image = imageio.imread(ns.image).astype(np.float32) / 255.0
         pipe = MVDreamPipeline.from_pretrained(ns.diffusion_ckpt,
                                                device=ns.device)
         mv = image_to_views(pipe, image, opt, ns.elevation)

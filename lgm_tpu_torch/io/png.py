@@ -1,5 +1,6 @@
-"""PNG reading and writing in the port's own code: the card host has no
-``cv2``, no PIL and no ``libpng``.
+"""PNG reading and writing in the port's own code, which relies on no
+``cv2``, PIL or ``libpng`` (a host may lack each; the card host has no
+``libpng``).
 
 The reader parses the chunks in Python, inflates the image data with the
 standard library's ``zlib`` and undoes the scanline filters in host C++
@@ -49,6 +50,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from lgm_tpu_torch.io import ImageError
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _SRC = Path(__file__).resolve().parents[1] / "data" / "csrc" / \
     "png_unfilter.cpp"
@@ -62,7 +65,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-class PngError(ValueError):
+class PngError(ImageError):
     """The file is not a PNG this reader takes."""
 
 

@@ -4,8 +4,9 @@
 interpolations (``utils/image.py::recenter``: ``INTER_AREA``;
 ``diffusion/pipeline.py::encode_image``: ``INTER_CUBIC``;
 ``encode_image_latents`` and ``infer.py``'s view resize:
-``INTER_LINEAR``). The card host has no ``cv2``, so the port keeps its own
-counterpart of each: one weight matrix an axis, applied as
+``INTER_LINEAR``). The port does not rely on ``cv2`` (a host may lack it,
+or have a version other than the 5.0 that ``lgm_tpu`` is held to), so it
+keeps its own counterpart of each: one weight matrix an axis, applied as
 ``Wy @ img @ Wxᵀ`` (host code, off the device path). The weights follow
 OpenCV's ``resize.cpp`` for float images:
 

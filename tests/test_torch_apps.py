@@ -2,9 +2,11 @@
 splat viewer's HTTP handler (page, frames with X-Render-Ms, 404), its
 frames against lgm_tpu's ViewerState on the same Gaussians, the frame
 encodings (JPEG through cv2 where it imports, else PNG); the app's
-multipart upload of four PNG views at nano (the .ply it serves is the
-.ply of the port's forward on the same decoded views), its error text for
-a part that is not a PNG, and run_image from a tiny ImageDream directory
+multipart upload of four PNG views, and of four JPEG views, at nano (the
+.ply it serves is the .ply of the port's forward on the same decoded
+views; the JPEG views are lgm_tpu's handler arithmetic on cv2.imdecode),
+its error text for a part that is neither a readable PNG nor JPEG, and
+run_image from a tiny ImageDream directory
 against lgm_tpu's AppState.run_image with the weights carried across.
 
 Frame tolerance (trap C2): lgm_tpu renders through its exact oracle on
@@ -199,12 +201,54 @@ def test_app_upload_names_a_part_that_is_not_png(app_server):
     with urllib.request.urlopen(req, timeout=600) as r:
         out = r.read().decode()
         assert r.headers["Content-Type"] == "text/plain"
-    assert "v2.png is JPEG, not a PNG" in out
+    # A corrupt JPEG is reported, naming the part, as a corrupt PNG is.
+    assert "error: v2.png: corrupt data" in out
     body, headers = _multipart(parts[:3])
     req = urllib.request.Request(url + "/mv", data=body, method="POST",
                                  headers=headers)
     with urllib.request.urlopen(req, timeout=600) as r:
-        assert "JPEG" in r.read().decode()
+        assert "v2.png: corrupt data" in r.read().decode()
+    parts[2] = ("v2", b"GIF89a" + b"\x00" * 64)
+    body, headers = _multipart(parts)
+    req = urllib.request.Request(url + "/mv", data=body, method="POST",
+                                 headers=headers)
+    with urllib.request.urlopen(req, timeout=600) as r:
+        assert "v2.png is an unknown format" in r.read().decode()
+
+
+def test_app_upload_of_jpegs_matches_lgm_tpu_handler(app_server):
+    """Four JPEG parts (4:2:0, 4:4:4, 4:2:2, 4:1:1): each view is lgm_tpu's
+    handler arithmetic on ``cv2.imdecode(IMREAD_UNCHANGED)`` (/ 255, BGR ->
+    RGB, ``cv2.resize`` linear), and the served .ply is the forward's on
+    those views."""
+    import cv2
+
+    state, url = app_server
+    s = state.opt.input_size
+    datas = []
+    for i, sampling in enumerate((0x221111, 0x111111, 0x211111, 0x411111)):
+        ok, buf = cv2.imencode(".jpg", _views(6)[1][..., :3], [
+            cv2.IMWRITE_JPEG_QUALITY, 70 + 5 * i,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling])
+        datas.append(buf.tobytes())
+    body, headers = _multipart([(f"v{i}", d) for i, d in enumerate(datas)])
+    req = urllib.request.Request(url + "/mv", data=body, method="POST",
+                                 headers=headers)
+    with urllib.request.urlopen(req, timeout=600) as r:
+        assert "done" in r.read().decode()
+    with urllib.request.urlopen(url + "/files/upload.ply") as r:
+        served = r.read()
+    mv = np.stack([app.decode_view(d, f"v{i}", s)
+                   for i, d in enumerate(datas)])
+    for view, data in zip(mv, datas):
+        arr = cv2.imdecode(np.frombuffer(data, np.uint8),
+                           cv2.IMREAD_UNCHANGED)
+        img = arr.astype(np.float32)[..., [2, 1, 0]] / 255
+        np.testing.assert_allclose(view, cv2.resize(img, (s, s)), rtol=0,
+                                   atol=1.2e-7)
+    expected = str(state.workdir) + "/expected_jpeg.ply"
+    save_ply(infer.forward_gaussians(state.model, mv), expected)
+    assert served == open(expected, "rb").read()
 
 
 def test_run_image_matches_lgm_tpu(tmp_path, monkeypatch):

@@ -5,8 +5,9 @@ the port's flatsort against lgm_tpu's renderer to the 1e-3 that flatsort
 is held to), and LVISMVData on a small LVIS-layout dataset written by
 the port's PNG writer (views nearest the azimuth ring, the elevation
 negated, white compositing, the INTER_AREA resize, an unreadable scene
-skipped) with training=False: cameras and prompts bit for bit, images to
-1e-5 (lgm_tpu resizes with cv2, the port with utils/resize.py)."""
+skipped, JPEG views read) with training=False: cameras and prompts bit
+for bit, images to 1e-5 (lgm_tpu resizes with cv2, the port with
+utils/resize.py)."""
 
 import os
 
@@ -101,3 +102,37 @@ def test_lvis_mv_data_refuses_a_dataset_with_no_readable_scene(lvis_root):
         os.path.join(lvis_root, "00000-09999", "broken_one")])
     with pytest.raises(RuntimeError, match="no readable scene"):
         ds.batch(0, 1)
+
+
+def test_lvis_mv_data_reads_jpeg_views_as_lgm_tpu(tmp_path):
+    """A scene whose views are JPEG bytes under the layout's ``NNN.png``
+    names (lgm_tpu's native decode sniffs the magic bytes) reads as
+    lgm_tpu's LVISMVData reads it; a scene of corrupt JPEGs is skipped as
+    a scene of corrupt PNGs is."""
+    import cv2
+
+    rng = np.random.default_rng(1)
+    for name, broken in (("jpeg_chair", False), ("broken_jpeg", True)):
+        d = tmp_path / "00000-09999" / name
+        d.mkdir(parents=True)
+        for v in range(6):
+            np.save(d / f"{v:03d}.npy",
+                    {"elevation": float(rng.uniform(-30, 30)),
+                     "azimuth": float(rng.uniform(0, 360)), "radius": 1.5})
+            y, x = np.mgrid[0:48, 0:48]
+            img = np.stack([(x * 5 + 30 * v) % 256, (y * 4) % 256,
+                            rng.integers(0, 256, (48, 48))], -1)
+            ok, buf = cv2.imencode(".jpg", img.astype(np.uint8),
+                                   [cv2.IMWRITE_JPEG_QUALITY, 85])
+            data = buf.tobytes()
+            (d / f"{v:03d}.png").write_bytes(
+                data[:2] + b"garbage" * 8 if broken else data)
+    ours = tdata.LVISMVData(str(tmp_path), num_frames=4, image_size=32,
+                            training=False)
+    ref = jdata.LVISMVData(str(tmp_path), num_frames=4, image_size=32,
+                           training=False)
+    b, r = ours.batch(0, 1), ref.batch(0, 1)
+    assert b["prompts"] == r["prompts"] == ["jpeg chair"]
+    np.testing.assert_array_equal(b["camera"], r["camera"])
+    np.testing.assert_allclose(b["images"], r["images"], rtol=0, atol=1e-5)
+    assert ours.batch(1, 1)["prompts"] == ["jpeg chair"]

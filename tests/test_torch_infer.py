@@ -152,6 +152,113 @@ def test_cli_reads_pngs_without_cv2(tmp_path):
         np.testing.assert_allclose(view, want, rtol=0, atol=1.2e-7)
 
 
+def _jpegs(tmp_path, size=40):
+    """Four JPEG views written by cv2: 4:2:0, 4:4:4, 4:2:2 and gray."""
+    import cv2
+
+    rng = np.random.default_rng(6)
+    y, x = np.mgrid[0:size, 0:size]
+    paths = []
+    for i, sampling in enumerate((0x221111, 0x111111, 0x211111, None)):
+        img = np.stack([(x * 6 + 40 * i) % 256, (y * 5) % 256,
+                        (x * y) % 256], -1).astype(np.uint8)
+        img[10:14] = rng.integers(0, 256, (4, size, 3))
+        params = [cv2.IMWRITE_JPEG_QUALITY, 85]
+        if sampling is None:
+            img = img[..., 1]
+        else:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+        paths.append(str(tmp_path / f"v{i}.jpg"))
+        assert cv2.imwrite(paths[-1], img, params)
+    return paths
+
+
+def test_cli_reads_jpegs_without_cv2(tmp_path):
+    """``--mv-images`` on JPEG files in a subprocess where ``import cv2``
+    fails: the port's decoder (io/jpeg.py) reads them, the .ply equals
+    the array path's (the same model's forward on the views loaded here),
+    and those views are lgm_tpu's ``_load_rgba`` (cv2.imread, INTER_AREA)
+    within the PNG test's 1.2e-7."""
+    import subprocess
+    import sys
+
+    paths = _jpegs(tmp_path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.modules['cv2'] = None\n"
+            "from lgm_tpu_torch import infer\n"
+            "infer.main(sys.argv[1:])\n")
+    ws = tmp_path / "ws"
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "nano", "--mv-images", *paths,
+         "--workspace", str(ws), "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    opt = get_config("nano")
+    mv = np.stack([infer._load_rgba(p, opt.input_size) for p in paths])
+    gaussians = infer.forward_gaussians(infer.load_model(opt, device="cpu"),
+                                        mv)
+    save_ply(gaussians, str(tmp_path / "array.ply"))
+    np.testing.assert_array_equal(load_ply(str(ws / "v0.ply")),
+                                  load_ply(str(tmp_path / "array.ply")))
+    for p, view in zip(paths, mv):
+        np.testing.assert_allclose(view, jinfer._load_rgba(p, opt.input_size),
+                                   rtol=0, atol=1.2e-7)
+
+
+class _StubPipe:
+    """An image-conditioned pipeline's stand-in: records its image and
+    returns fixed views."""
+
+    def __init__(self, mv):
+        self.mv, self.images = mv, []
+
+    def __call__(self, image, **kw):
+        self.images.append(image)
+        return self.mv
+
+
+def test_cli_image_reads_a_jpeg_without_cv2(tmp_path, monkeypatch):
+    """``--image x.jpg`` with ``cv2`` blocked: the image handed to the
+    pipeline is lgm_tpu's (``cv2.imread(IMREAD_UNCHANGED) / 255``, BGR ->
+    RGB) bit for bit, and the .ply is the array path's on the same
+    pipeline views; a corrupt JPEG raises ``ImageError`` as a corrupt PNG
+    raises ``PngError``."""
+    import sys
+
+    import cv2
+
+    from lgm_tpu_torch.diffusion import pipeline
+    from lgm_tpu_torch.io import ImageError
+
+    path = _jpegs(tmp_path, 64)[0]
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED).astype(np.float32) / 255
+    opt = get_config("nano")
+    views = np.random.default_rng(8).uniform(
+        0, 1, (4, 64, 64, 3)).astype(np.float32)
+    stub = _StubPipe(views)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(pipeline.MVDreamPipeline, "from_pretrained",
+                        classmethod(lambda cls, *a, **k: stub))
+    ws = tmp_path / "ws"
+    infer.main(["nano", "--image", path, "--diffusion-ckpt", "unused",
+                "--workspace", str(ws), "--device", "cpu"])
+    (image,) = stub.images
+    np.testing.assert_array_equal(image, want[..., [2, 1, 0]])
+    mv = infer.image_to_views(_StubPipe(views), want, opt)
+    gaussians = infer.forward_gaussians(infer.load_model(opt, device="cpu"),
+                                        mv)
+    save_ply(gaussians, str(tmp_path / "array.ply"))
+    np.testing.assert_array_equal(load_ply(str(ws / "v0.ply")),
+                                  load_ply(str(tmp_path / "array.ply")))
+    with open(path, "rb") as fh:
+        data = fh.read()
+    bad = tmp_path / "bad.jpg"
+    bad.write_bytes(data[:len(data) // 2])
+    with pytest.raises(ImageError, match="bad.jpg"):
+        infer._load_rgba(str(bad), opt.input_size)
+
+
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

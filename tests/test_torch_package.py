@@ -19,7 +19,8 @@ import lgm_tpu_torch
 for m in pkgutil.walk_packages(lgm_tpu_torch.__path__, "lgm_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-required = ("lgm_tpu_torch.io.png", "lgm_tpu_torch.data.decode",
+required = ("lgm_tpu_torch.io.png", "lgm_tpu_torch.io.jpeg",
+            "lgm_tpu_torch.io.image", "lgm_tpu_torch.data.decode",
             "lgm_tpu_torch.data.provider", "lgm_tpu_torch.parallel.dist",
             "lgm_tpu_torch.utils.augment", "lgm_tpu_torch.diffusion.data",
             "lgm_tpu_torch.diffusion.train", "lgm_tpu_torch.convert",
@@ -52,9 +53,24 @@ def test_port_sources_have_no_jax_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|lgm_tpu)\b",
                      re.M)
     files = list((ROOT / "lgm_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "scripts" / "eval_convert_quality_torch.py"]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
+
+
+def test_host_sources_include_no_image_library():
+    """The PNG unfilter and the JPEG decoder are the port's own code: the
+    host C++ includes the standard C++ library only (no libjpeg, libpng,
+    zlib or OpenCV header), so it builds where none is installed."""
+    srcs = sorted((ROOT / "lgm_tpu_torch").rglob("csrc/*.cpp"))
+    assert {p.name for p in srcs} >= {"png_unfilter.cpp", "jpeg_decode.cpp"}
+    for src in srcs:
+        headers = re.findall(r'^#include\s*[<"]([^>"]+)', src.read_text(),
+                             re.M)
+        # Standard C++ headers have no extension; a library's have one.
+        assert headers and all("." not in h for h in headers), (src,
+                                                                 headers)
 
 
 def test_kernel_sources_are_found_and_build_needs_nvcc(tmp_path,

@@ -1,5 +1,5 @@
 """The disk-data slice at nano size on the CPU: the port's decode, the
-augmentations, the sample assembly, both datasets, skip-and-pad, the
+augmentations, the sample assembly (PNG and JPEG views), both datasets, skip-and-pad, the
 decode cache and the loader's batches against lgm_tpu's on the same files
 and seeded generators; then the trainer on disk data through its CLI."""
 
@@ -131,6 +131,64 @@ def test_load_views_matches_native(views, sizes):
         np.testing.assert_allclose(a[ours[4]], b[ours[4]], rtol=0,
                                    atol=1e-6)
         np.testing.assert_array_equal(a[ours[4]], b[ours[4]])
+
+
+@pytest.fixture(scope="module")
+def jpeg_views(tmp_path_factory):
+    """JPEGs written by cv2 (4:2:0, 4:4:4, 4:2:2, gray, and one with
+    restart markers), the same kind of bytes under a ``.png`` name (the
+    magic bytes decide, as in dataload.cpp::decode_file), a corrupt one
+    (SOI then garbage: libjpeg refuses it too) and a missing one."""
+    d = tmp_path_factory.mktemp("jpeg_views")
+    rng = np.random.default_rng(9)
+    paths = []
+    specs = [((48, 48), 0x221111, 90, 0), ((64, 40), 0x111111, 75, 0),
+             ((97, 130), 0x211111, 60, 0), ((33, 33), None, 80, 0),
+             ((50, 70), 0x221111, 85, 3), ((40, 40), 0x221111, 95, 0)]
+    for i, ((h, w), sampling, q, rst) in enumerate(specs):
+        y, x = np.mgrid[0:h, 0:w]
+        img = np.stack([(x * 7) % 256, (y * 3 + 20 * i) % 256,
+                        (x * y) % 256], -1).astype(np.uint8)
+        img[h // 2:h // 2 + 4] = rng.integers(0, 256, (4, w, 3))
+        params = [cv2.IMWRITE_JPEG_QUALITY, q, cv2.IMWRITE_JPEG_RST_INTERVAL,
+                  rst]
+        if sampling is None:
+            img = img[..., 0]
+        else:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+        ext = "png" if i == len(specs) - 1 else "jpg"
+        paths.append(str(d / f"{i:03d}.{ext}"))
+        ok, buf = cv2.imencode(".jpg", img, params)
+        (d / os.path.basename(paths[-1])).write_bytes(buf.tobytes())
+    (d / "corrupt.jpg").write_bytes(b"\xff\xd8" + b"garbage" * 8)
+    return paths + [str(d / f) for f in ("corrupt.jpg", "missing.jpg")]
+
+
+@pytest.mark.parametrize("sizes", [(32, 24), (48, 0), (33, 97)])
+def test_load_views_on_jpegs_matches_native(jpeg_views, sizes):
+    """decode.load_views on JPEG files (and JPEG bytes in a .png file)
+    against lgm_tpu.native.load_views (libjpeg + the C++ composite and
+    resize): bit for bit, unreadable entries ok False and zero."""
+    ours = decode.load_views(jpeg_views, *sizes)
+    ref = native.load_views(jpeg_views, *sizes, n_threads=2)
+    assert list(ours[4]) == list(ref[4]) == [True] * 6 + [False] * 2
+    for a, b in zip(ours[:4], ref[:4]):
+        if b is None:
+            assert a is None
+            continue
+        np.testing.assert_array_equal(a[ours[4]], b[ours[4]])
+        assert not a[~ours[4]].any()
+
+
+def test_load_views_skips_a_refused_jpeg(jpeg_views, tmp_path):
+    """A JPEG the port refuses (progressive) is an unreadable entry, as a
+    refused PNG is: ok False and zero pixels, the others decoded."""
+    img = cv2.imread(jpeg_views[0], cv2.IMREAD_UNCHANGED)
+    prog = str(tmp_path / "progressive.jpg")
+    cv2.imwrite(prog, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    rgb, mask, _, _, ok = decode.load_views([jpeg_views[0], prog], 32)
+    assert list(ok) == [True, False]
+    assert not rgb[1].any() and not mask[1].any() and rgb[0].any()
 
 
 def test_load_views_matches_cv2_path(views):
