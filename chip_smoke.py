@@ -27,6 +27,12 @@ checked against the counts each path must give):
   the backend's image held against the oracle and flatsort;
 - the attention gate: the ``nano`` preset (head dim 6) trained one step
   in fp32 and in bf16, every site on the dense route, losses finite;
+- the bridge from lgm_tpu's checkpoints: the committed nano ``ckpt_1``
+  that ``scripts/ckpt_to_torch.py`` wrote from lgm_tpu's own, read by
+  ``infer``'s and ``train``'s ``--resume`` readers in f32 with TF32 off:
+  the Gaussians of the committed input and the next step's loss against
+  lgm_tpu's (exact renderers on both sides: no kernel), then
+  ``train.main`` resumed from it for one step (``bridge``);
 - the diffusion front-end: K1 at the MV-U-Net's level-0 shapes (phase
   ``k1_diffusion``); MVDream's text path at its published widths, 4 steps
   (``diffusion_text``: K1 5 a U-Net call); and the single-image path,
@@ -45,12 +51,14 @@ checked against the counts each path must give):
   the exact launches of K1, K1ᵇ, K2 and K2ᵇ a step, K1, K1ᵇ and K2ᵇ on
   the first step's own inputs), and the ``infer`` CLI in a subprocess on
   four PNG views with that checkpoint, then its entry point in this
-  process on four committed 256² JPEG views (``infer_cli``: K1 16, K2
-  180, the Gaussians the array path's on the same decoded views);
-- JPEG inputs: the port's baseline decoder (``io/jpeg.py``, host C++)
-  built here and held to the committed digests of cv2's decode of every
-  fixture in ``tests/fixtures/jpeg/``, every refused class raising, the
-  decode time of a 512² and a 1024² 4:2:0 file (``jpeg_codec``);
+  process on four committed 256² JPEG views, sequential and then
+  progressive (``infer_cli``: K1 16, K2 180 each, the Gaussians the
+  array path's on the same decoded views);
+- JPEG inputs: the port's decoder (``io/jpeg.py``, host C++, sequential
+  and progressive) built here and held to the committed digests of cv2's
+  decode of every fixture in ``tests/fixtures/jpeg/``, every refused
+  class raising, the decode time of a 512² and a 1024² 4:2:0 file of
+  each kind (``jpeg_codec``);
 - the multi-view diffusion finetune: K1 and K1ᵇ at its level-0 shapes
   (BH 20, S 4096 and 5120, D 64; ``k1_bwd_diffusion``), then
   ``DiffusionTrainer`` at MVDream's and at ImageDream's published widths
@@ -200,6 +208,17 @@ SCOPES = ("loss_forward", "lgm", "render", "lpips", "loss_backward",
           "optimizer")
 # Steps of each training phase: one cold, the rest warm.
 N_STEPS = 4
+
+# The bridge fixture (scripts/make_bridge_fixture.py): lgm_tpu's nano
+# ckpt_1 converted by scripts/ckpt_to_torch.py, and lgm_tpu's Gaussians
+# and next-step loss terms from it (f32, the exact renderer). On the card
+# in f32 with TF32 off the convolutions sum in other orders: the port on
+# the CPU is 1.9e-5 from lgm_tpu's Gaussians (values in [-1, 1]) and 2e-6
+# relative from its gradient norm, so the bounds are 10x and 50x those.
+BRIDGE_DIR = os.path.join(ROOT, "tests", "fixtures", "bridge")
+BRIDGE_FLAGS = ["nano", "--mixed-precision", "fp32"]
+BRIDGE_GAUSSIANS_ATOL = 2e-4
+BRIDGE_LOSS_RTOL = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -1415,6 +1434,68 @@ def phase_nano(dev):
     emit("nano_precisions", **out)
 
 
+def phase_bridge(dev):
+    """The committed nano checkpoint converted from lgm_tpu's (``bridge``):
+    read by ``infer.load_model`` (``infer --resume``) and by
+    ``train.load_checkpoint`` (``train --resume``) in f32, TF32 off; the
+    Gaussians of the committed input within ``BRIDGE_GAUSSIANS_ATOL`` of
+    lgm_tpu's, the next step's loss terms and gradient norm (committed
+    batch and background, the exact renderer as lgm_tpu's ``xla``) within
+    ``BRIDGE_LOSS_RTOL``; then ``train.main`` resumed from the file takes
+    step 2 on its own synthetic batch (flatsort) and saves ``ckpt_2``."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import infer, train
+    from lgm_tpu_torch.config import parse_cli
+
+    ckpt = os.path.join(BRIDGE_DIR, "ckpt_1")
+    ref = np.load(os.path.join(BRIDGE_DIR, "reference.npz"))
+    opt = parse_cli(BRIDGE_FLAGS)
+    keys = ("input", "images_output", "masks_output", "cam_view")
+    data = {k: torch.as_tensor(ref[k], device=dev) for k in keys}
+    model = infer.load_model(opt, ckpt, str(dev))
+    with torch.no_grad():
+        g = model(data["input"]).cpu().numpy()
+    del model
+    g_err = float(np.abs(g - ref["gaussians"]).max())
+    state = train.load_checkpoint(ckpt, train.create_state(
+        opt, dev, backend="reference"))
+    if state.step != 1 or state.optimizer.mu[0].dtype != torch.bfloat16:
+        raise AssertionError(f"bridge: resumed at step {state.step}, mu "
+                             f"{state.optimizer.mu[0].dtype}")
+    m = train.train_step(state, data, torch.as_tensor(ref["bg"],
+                                                      device=dev))
+    torch.cuda.synchronize()
+    rel = {k: abs(float(m[k]) - float(ref[k])) / abs(float(ref[k]))
+           for k in ("loss", "loss_mse", "psnr", "gnorm")}
+    del state
+    if g_err > BRIDGE_GAUSSIANS_ATOL or max(rel.values()) > BRIDGE_LOSS_RTOL:
+        raise AssertionError(f"bridge: Gaussians max abs err {g_err}, "
+                             f"loss terms rel err {rel}")
+    ws = os.path.join(ROOT, "build", "smoke", "bridge")
+    shutil.rmtree(ws, ignore_errors=True)
+    t0 = time.perf_counter()
+    train.main([*BRIDGE_FLAGS, "--workspace", ws, "--resume", ckpt,
+                "--total-steps", "2", "--device", dev.type])
+    cli_s = time.perf_counter() - t0
+    resumed = torch.load(os.path.join(ws, "ckpt_2"), map_location="cpu",
+                         weights_only=True)
+    if resumed["step"] != 2 or resumed["opt_state"]["count"] != 2:
+        raise AssertionError(f"bridge: train --resume wrote step "
+                             f"{resumed['step']}")
+    shutil.rmtree(ws, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit("bridge", checkpoint=os.path.relpath(ckpt, ROOT),
+         checkpoint_bytes=os.path.getsize(ckpt),
+         gaussians_max_abs_err=g_err, gaussians_atol=BRIDGE_GAUSSIANS_ATOL,
+         loss_rel_err=rel, loss_rtol=BRIDGE_LOSS_RTOL,
+         loss=float(m["loss"]), lgm_tpu_loss=float(ref["loss"]),
+         train_resume_s=cli_s, train_resume_step=2)
+
+
 def phase_k1_diffusion(dev):
     """K1 at the diffusion U-Net's level-0 joint self-attention
     (``K1_DIFFUSION_SHAPES``) against its plain version, run twice for the
@@ -2218,15 +2299,21 @@ def _timed_ms(fn) -> float:
 # azimuths 0/90/180/270, 256²: the JPEG inputs of infer_cli and app_http.
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
 JPEG_VIEWS = [os.path.join(JPEG_FIXTURES, f"view{i}.jpg") for i in range(4)]
+# The same views written progressive (pview0-pview3).
+PROGRESSIVE_VIEWS = [os.path.join(JPEG_FIXTURES, f"pview{i}.jpg")
+                     for i in range(4)]
+JPEG_BENCH = {"bench512": 512, "bench1024": 1024, "pbench512": 512,
+              "pbench1024": 1024}
 
 
 def phase_jpeg_codec():
     """The port's JPEG decoder built on this host (no image library) and
     held to the manifest: every fixture it takes decodes to the SHA-256
     of cv2's decode (tests/test_torch_jpeg.py checks the manifest against
-    cv2), every refused class raises ``JpegError``; the decode ms of the
-    512² and 1024² 4:2:0 fixtures (median of 9, one thread); and whether
-    ``cv2`` imports on this host (the port does not need it)."""
+    cv2), sequential and progressive, every refused class raises
+    ``JpegError``; the decode ms of the 512² and 1024² 4:2:0 fixtures of
+    each kind (median of 9, one thread); and whether ``cv2`` imports on
+    this host (the port does not need it)."""
     import hashlib
 
     from lgm_tpu_torch.io import jpeg
@@ -2250,8 +2337,13 @@ def phase_jpeg_codec():
             refused[cls] = str(exc)
         else:
             raise AssertionError(f"jpeg: {name} ({cls}) was not refused")
+    progressive = []
+    for name in manifest["taken"]:
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as fh:
+            if b"\xff\xc2" in fh.read():
+                progressive.append(name)
     decode_ms = {}
-    for name in ("bench512", "bench1024"):
+    for name in JPEG_BENCH:
         with open(os.path.join(JPEG_FIXTURES, f"{name}.jpg"), "rb") as fh:
             data = fh.read()
         jpeg.decode(data)
@@ -2261,8 +2353,12 @@ def phase_jpeg_codec():
                             "import cv2; print(cv2.__version__)"],
                            capture_output=True, text=True, timeout=120)
     emit("jpeg_codec", build_s=build_s, taken=len(manifest["taken"]),
+         progressive_taken=sorted(progressive),
          digests_equal_cv2=True, refused=refused, decode_ms=decode_ms,
-         mpixel_per_s={k: (int(k[5:]) ** 2 / 1e6) / (ms / 1e3)
+         progressive_over_sequential={
+             k: decode_ms[f"p{k}"] / decode_ms[k]
+             for k in ("bench512", "bench1024")},
+         mpixel_per_s={k: (JPEG_BENCH[k] ** 2 / 1e6) / (ms / 1e3)
                        for k, ms in decode_ms.items()},
          cv2_on_host=probe.stdout.strip() if probe.returncode == 0
          else None)
@@ -2582,18 +2678,21 @@ def phase_infer_cli(dev, root, ckpt):
     if video[0].endswith(".npy"):
         frames = list(np.load(os.path.join(ws, video[0]),
                               mmap_mode="r").shape)
-    jpeg_run = infer_jpeg(dev, ckpt, os.path.join(ws, "jpeg"))
+    jpeg_run = infer_jpeg(dev, ckpt, os.path.join(ws, "jpeg"), JPEG_VIEWS)
+    progressive_run = infer_jpeg(dev, ckpt, os.path.join(ws, "progressive"),
+                                 PROGRESSIVE_VIEWS)
     emit("infer_cli", scene=os.path.relpath(scene, ROOT), wall_s=wall_s,
          ply=os.path.relpath(ply, ROOT), ply_gaussians=len(g),
          video=video[0], frames=frames,
-         checkpoint=os.path.relpath(ckpt, ROOT), jpeg=jpeg_run)
+         checkpoint=os.path.relpath(ckpt, ROOT), jpeg=jpeg_run,
+         progressive_jpeg=progressive_run)
     os.remove(ckpt)
-    return jpeg_run["launches"]
+    return jpeg_run["launches"], progressive_run["launches"]
 
 
-def infer_jpeg(dev, ckpt, ws):
-    """``infer.main(["big", "--mv-images", view0.jpg, ...])`` in this
-    process on the committed JPEG views with ``ckpt``: K1 16 and K2 180
+def infer_jpeg(dev, ckpt, ws, paths):
+    """``infer.main(["big", "--mv-images", *paths])`` in this process on
+    four committed JPEG views with ``ckpt``: K1 16 and K2 180
     exactly, and the .ply byte for byte that of the array path, the same
     weights' ``forward_gaussians`` on the views decoded here (BGR / 255
     -> RGB, INTER_AREA to the input size), cuDNN's deterministic
@@ -2617,7 +2716,7 @@ def infer_jpeg(dev, ckpt, ws):
     try:
         mha_fwd.launches = fs.composite_fwd.launches = 0
         t0 = time.perf_counter()
-        infer.main(["big", "--mv-images", *JPEG_VIEWS, "--resume", ckpt,
+        infer.main(["big", "--mv-images", *paths, "--resume", ckpt,
                     "--workspace", ws, "--device", dev.type])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
@@ -2631,20 +2730,21 @@ def infer_jpeg(dev, ckpt, ws):
                                  f"expected {expected}")
         views = np.stack([resize(
             jpeg.imread(p).astype(np.float32)[..., [2, 1, 0]] / 255.0,
-            (opt.input_size, opt.input_size), "area") for p in JPEG_VIEWS])
+            (opt.input_size, opt.input_size), "area") for p in paths])
         ref = os.path.join(ws, "array_path.ply")
         save_ply(infer.forward_gaussians(model, views), ref)
         del model
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    with open(ref, "rb") as a, open(os.path.join(ws, "view0.ply"),
+    stem = os.path.splitext(os.path.basename(paths[0]))[0]
+    with open(ref, "rb") as a, open(os.path.join(ws, stem + ".ply"),
                                     "rb") as b:
         if a.read() != b.read():
             raise AssertionError("infer on JPEG views: the .ply is not the "
                                  "array path's")
     torch.cuda.empty_cache()
     return dict(wall_s=wall_s, launches=got, ply_equal_array_path=True,
-                views=[os.path.relpath(p, ROOT) for p in JPEG_VIEWS])
+                views=[os.path.relpath(p, ROOT) for p in paths])
 
 
 # The mesh converter at lgm_tpu's default depth and widths
@@ -3177,6 +3277,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_v1_image(dev)
     phase_nano(dev)
+    phase_bridge(dev)
     torch.cuda.empty_cache()
     finetune_launches = {name: phase_diffusion_train(dev, name)
                          for name in ("mvdream", "imagedream")}
@@ -3186,7 +3287,8 @@ def main() -> int:
     phase_loader(dev, root)
     disk_launches, ckpt = phase_train_disk(dev, root)
     torch.cuda.empty_cache()
-    infer_jpeg_launches = phase_infer_cli(dev, root, ckpt)
+    infer_jpeg_launches, progressive_launches = phase_infer_cli(dev, root,
+                                                                ckpt)
     phase_diffusion_train_cli(dev, root)
     torch.cuda.empty_cache()
     convert_launches, _ = phase_convert(dev)
@@ -3210,6 +3312,7 @@ def main() -> int:
              diffusion_train_shapes=k1_train_shapes,
              app_launches_per_request=app_launches["mha_fwd"],
              infer_jpeg_launches=infer_jpeg_launches["mha_fwd"],
+             infer_progressive_jpeg_launches=progressive_launches["mha_fwd"],
              **{k: k1[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_fwd.cu",
@@ -3221,6 +3324,8 @@ def main() -> int:
              viewer_launches_per_frame=viewer_launches["composite_fwd"],
              app_launches_per_request=app_launches["composite_fwd"],
              infer_jpeg_launches=infer_jpeg_launches["composite_fwd"],
+             infer_progressive_jpeg_launches=progressive_launches[
+                 "composite_fwd"],
              convert_quality_launches=quality_launches["composite_fwd"],
              **{k: k2[k] for k in keys}),
         dict(name="mha_bwd", route="cuda",

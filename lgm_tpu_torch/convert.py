@@ -43,6 +43,7 @@ from torch import nn
 from lgm_tpu_torch import native
 from lgm_tpu_torch.config import CONFIGS, Options
 from lgm_tpu_torch.infer import resolve_device
+from lgm_tpu_torch.models.init import init_like_flax_
 from lgm_tpu_torch.models.unet import use_full_float32
 from lgm_tpu_torch.ops.gsplat.api import render_views
 from lgm_tpu_torch.ops.gsplat.projection import quat_to_rotmat
@@ -90,14 +91,6 @@ def _orbit_pose(rng, radius, front_bias=False):
     return camera.orbit_camera(el, az, radius)
 
 
-def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    """Flax's Dense default: truncated normal (±2 std) of variance
-    1/fan_in."""
-    std = (1.0 / weight.shape[1]) ** 0.5 / 0.87962566103423978
-    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
-
-
 class NerfField(nn.Module):
     """The converter's radiance field (``lgm_tpu/convert.py:138-160``):
     pts in [-1, 1] -> hash grid (12 levels x 2 features, 2^17 entries,
@@ -112,10 +105,7 @@ class NerfField(nn.Module):
                                     max_resolution=512, generator=generator)
         self.mlp1 = nn.utils.skip_init(nn.Linear, 24, 64)
         self.mlp2 = nn.utils.skip_init(nn.Linear, 64, 4)
-        with torch.no_grad():
-            for lin in (self.mlp1, self.mlp2):
-                _lecun_normal_(lin.weight, generator)
-                lin.bias.zero_()
+        init_like_flax_(self, generator or torch.default_generator)
 
     def forward(self, pts: torch.Tensor, dirs=None):
         x = (pts + 1.0) * 0.5

@@ -1,8 +1,19 @@
-// Baseline JPEG decoding (ITU-T T.81), host code with no image library.
+// JPEG decoding (ITU-T T.81), host code with no image library.
 //
-// Reads sequential Huffman-coded frames (SOF0, SOF1) of 8-bit samples with
-// one (gray) or three components at any integral sampling factors, and
-// computes what libjpeg-turbo computes at its defaults, bit for bit:
+// Reads sequential (SOF0, SOF1) and progressive (SOF2) Huffman-coded frames
+// of 8-bit samples with one (gray) or three components at any integral
+// sampling factors, and computes what libjpeg-turbo computes at its
+// defaults, bit for bit:
+//   - progressive scans (T.81 G.1.2, jdphuff.c): DC first and refinement
+//     scans, interleaved or not; AC first and refinement scans of one
+//     component, with end-of-band runs and correction bits; restart
+//     intervals in any scan. They fill a whole-image coefficient buffer,
+//     each non-interleaved scan walking its component's own block grid;
+//     after the last scan every block goes through the same IDCT,
+//     upsampling and colour conversion as a sequential file's. A file
+//     whose scans leave any coefficient short of full precision is refused:
+//     libjpeg would then smooth the blocks (jdcoefct.c's
+//     decompress_smooth_data), which this decoder does not;
 //   - the JDCT_ISLOW inverse DCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2,
 //     its range-limit table, whose wrap for out-of-range values is kept);
 //   - jdsample.c's fancy upsampling: h2v1 and h2v2 where the downsampled
@@ -15,11 +26,13 @@
 //     component is gray; three are YCbCr under JFIF, else RGB under an
 //     Adobe APP14 transform of 0, else RGB for component ids 'R' 'G' 'B',
 //     else YCbCr. EXIF orientation is not applied.
-// It refuses, with an error message, what it does not read: progressive,
-// lossless, hierarchical and arithmetic-coded frames, 12-bit samples, four
-// components (CMYK/YCCK), DNL, scans that interleave fewer components than
-// the frame has, and truncated or corrupt data or a missing table (where
-// libjpeg would warn and pad, or substitute its standard tables).
+// It refuses, with an error message, what it does not read: lossless,
+// hierarchical and arithmetic-coded frames, 12-bit samples, four components
+// (CMYK/YCCK), DNL, sequential scans that interleave fewer components than
+// the frame has, progressive files short of full refinement or whose scan
+// order libjpeg warns about, and truncated or corrupt data or a missing
+// table (where libjpeg would warn and pad, or substitute its standard
+// tables).
 //
 // Called through ctypes (which releases the GIL) by
 // lgm_tpu_torch/io/jpeg.py. Plain C interface, built with the host
@@ -96,8 +109,17 @@ struct Component {
   int dw = 0, dh = 0;        // downsampled width and height (samples)
   int bw = 0, bh = 0;        // blocks in the coded plane
   int td = 0, ta = 0, pred = 0;
-  const uint16_t* qt = nullptr;
+  // The quantisation table, copied at the component's first scan, as
+  // jdinput.c::latch_quant_tables does (a later DQT does not change it).
+  bool latched = false;
+  uint16_t qt[64] = {};
   std::vector<uint8_t> plane;  // bw * 8 columns, bh * 8 rows
+  // Progressive frames: the MCU-padded block grid's coefficients (natural
+  // order, bw x bh blocks) and, for each coefficient, the point transform
+  // Al of the last scan that coded it (-1 before any), as libjpeg's
+  // coef_bits.
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
 
 // The entropy-coded segment's bits. Stuffed bytes (FF 00) read as FF; at a
@@ -348,22 +370,22 @@ class Decoder {
       const int m = next_marker();
       if (m == 0xD9) {
         if (!scanned_) fail("no image data before EOI");
+        if (progressive_) finish_progressive();
         return;
       }
       if (m >= 0xD0 && m <= 0xD7)
         fail("corrupt data: restart marker outside a scan");
-      if (m == 0xC0 || m == 0xC1) {
-        read_sof();
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        read_sof(m == 0xC2);
         if (header_only) return;
         continue;
       }
-      if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE)
-        fail("progressive JPEG is not read");
       if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF)
         fail("lossless JPEG is not read");
-      if (m == 0xC5 || m == 0xDE || m == 0xDF)
+      if (m == 0xC5 || m == 0xC6 || m == 0xDE || m == 0xDF)
         fail("hierarchical JPEG is not read");
-      if (m == 0xC9 || m == 0xCC) fail("arithmetic-coded JPEG is not read");
+      if (m == 0xC9 || m == 0xCA || m == 0xCC || m == 0xCE)
+        fail("arithmetic-coded JPEG is not read");
       if (m == 0xC8) fail("JPEG extension frames are not read");
       if (m == 0xDC) fail(kDnl);
       const size_t len = segment_length();
@@ -415,7 +437,7 @@ class Decoder {
   int restart_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = -1;
-  bool frame_ = false, scanned_ = false;
+  bool frame_ = false, scanned_ = false, progressive_ = false;
   int width_ = 0, height_ = 0, ncomp_ = 0, hmax_ = 1, vmax_ = 1;
   Component comp_[3];
 
@@ -440,8 +462,9 @@ class Decoder {
     return len;
   }
 
-  void read_sof() {
+  void read_sof(bool progressive) {
     if (frame_) fail("corrupt data: a second frame header");
+    progressive_ = progressive;
     const size_t len = segment_length();
     const uint8_t* b = data_ + pos_ + 2;
     if (len < 8) fail("corrupt data: bad SOF length");
@@ -474,6 +497,12 @@ class Decoder {
         fail("fractional sampling factors are not read");
       c.dw = int((int64_t(width_) * c.h + hmax_ - 1) / hmax_);
       c.dh = int((int64_t(height_) * c.v + vmax_ - 1) / vmax_);
+      if (progressive_) {
+        c.bw = (width_ + 8 * hmax_ - 1) / (8 * hmax_) * c.h;
+        c.bh = (height_ + 8 * vmax_ - 1) / (8 * vmax_) * c.v;
+        c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+        std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      }
     }
     frame_ = true;
     pos_ += len;
@@ -515,12 +544,14 @@ class Decoder {
 
   void read_scan(const uint8_t* b, size_t len) {
     if (!frame_) fail("corrupt data: scan before the frame header");
-    if (scanned_) fail("files with more than one scan are not read");
+    if (scanned_ && !progressive_)
+      fail("files with more than one scan are not read");
     if (len < 1) fail("corrupt data: bad SOS");
     const int ns = b[0];
     if (len != size_t(4 + 2 * ns) || ns < 1) fail("corrupt data: bad SOS");
-    if (ns != ncomp_)
+    if (ns != ncomp_ && !progressive_)
       fail("non-interleaved scans of a colour image are not read");
+    if (ns > ncomp_) fail("corrupt data: bad SOS");
     Component* order[3];
     for (int i = 0; i < ns; ++i) {
       const int id = b[1 + 2 * i];
@@ -533,41 +564,71 @@ class Decoder {
       c->td = b[2 + 2 * i] >> 4;
       c->ta = b[2 + 2 * i] & 15;
       if (c->td > 3 || c->ta > 3) fail("corrupt data: bad table in SOS");
-      if (!dc_[c->td].defined || !ac_[c->ta].defined)
-        fail("missing Huffman table");
-      if (!qdef_[c->tq]) fail("missing quantisation table");
-      c->qt = qt_[c->tq];
+      if (!c->latched) {
+        if (!qdef_[c->tq]) fail("missing quantisation table");
+        std::memcpy(c->qt, qt_[c->tq], sizeof(c->qt));
+        c->latched = true;
+      }
       order[i] = c;
     }
-    const int ss = b[1 + 2 * ns], se = b[2 + 2 * ns], ahal = b[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0)
-      fail("corrupt data: bad spectral selection for a sequential scan");
+    const int ss = b[1 + 2 * ns], se = b[2 + 2 * ns];
+    const int ah = b[3 + 2 * ns] >> 4, al = b[3 + 2 * ns] & 15;
+    if (progressive_) {
+      progressive_scan(order, ns, ss, se, ah, al);
+    } else {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        fail("corrupt data: bad spectral selection for a sequential scan");
+      sequential_scan(order, ns);
+    }
+    scanned_ = true;
+  }
+
+  // The MCU grid of a scan (T.81 A.2): one block of the component when the
+  // scan has one, walking the component's own block grid; else each
+  // component's h x v blocks in scan order over the frame's MCUs.
+  void scan_grid(Component* const* order, int ns, int& mcux, int& mcuy) {
+    if (ns == 1) {
+      mcux = (order[0]->dw + 7) / 8;
+      mcuy = (order[0]->dh + 7) / 8;
+      return;
+    }
+    mcux = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
+    mcuy = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    int blocks = 0;
+    for (int i = 0; i < ns; ++i) blocks += order[i]->h * order[i]->v;
+    if (blocks > 10) fail("corrupt data: more than 10 blocks in an MCU");
+  }
+
+  // jdhuff.c / jdphuff.c process_restart: discard the partial byte, read
+  // RSTn; the caller resets its predictions (and end-of-band run).
+  void restart(BitReader& br, int& next_rst) {
+    size_t p = br.consumed_pos();
+    while (p < n_ && data_[p] != 0xFF) ++p;  // libjpeg skips (warns)
+    while (p < n_ && data_[p] == 0xFF) ++p;
+    if (p >= n_) fail("truncated or corrupt entropy-coded data");
+    if (data_[p] != 0xD0 + next_rst)
+      fail("corrupt data: missing or out-of-order restart marker");
+    br.pos = p + 1;
+    br.reset();
+    next_rst = (next_rst + 1) & 7;
+  }
+
+  void sequential_scan(Component* const* order, int ns) {
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *order[i];
+      if (!dc_[c.td].defined || !ac_[c.ta].defined)
+        fail("missing Huffman table");
+    }
     for (int i = 0; i < ns; ++i) {
       dc_[order[i]->td].derive(true);
       ac_[order[i]->ta].derive(false);
     }
-    // MCU layout (T.81 A.2): one block of the component when the scan has
-    // one, else each component's h x v blocks in scan order.
     int mcux, mcuy;
-    if (ns == 1) {
-      Component& c = *order[0];
-      mcux = (c.dw + 7) / 8;
-      mcuy = (c.dh + 7) / 8;
-      c.bw = mcux;
-      c.bh = mcuy;
-    } else {
-      mcux = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-      mcuy = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
-      int blocks = 0;
-      for (int i = 0; i < ns; ++i) {
-        order[i]->bw = mcux * order[i]->h;
-        order[i]->bh = mcuy * order[i]->v;
-        blocks += order[i]->h * order[i]->v;
-      }
-      if (blocks > 10) fail("corrupt data: more than 10 blocks in an MCU");
-    }
+    scan_grid(order, ns, mcux, mcuy);
     for (int i = 0; i < ns; ++i) {
       Component& c = *order[i];
+      c.bw = ns == 1 ? mcux : mcux * c.h;
+      c.bh = ns == 1 ? mcuy : mcuy * c.v;
       c.plane.assign(size_t(c.bw) * 8 * c.bh * 8, 0);
       c.pred = 0;
     }
@@ -577,16 +638,7 @@ class Decoder {
     int togo = restart_, next_rst = 0;
     for (int mcu = 0; mcu < total; ++mcu) {
       if (restart_ && togo == 0) {
-        // jdhuff.c::process_restart: discard the partial byte, read RSTn.
-        size_t p = br.consumed_pos();
-        while (p < n_ && data_[p] != 0xFF) ++p;  // libjpeg skips (warns)
-        while (p < n_ && data_[p] == 0xFF) ++p;
-        if (p >= n_) fail("truncated or corrupt entropy-coded data");
-        if (data_[p] != 0xD0 + next_rst)
-          fail("corrupt data: missing or out-of-order restart marker");
-        br.pos = p + 1;
-        br.reset();
-        next_rst = (next_rst + 1) & 7;
+        restart(br, next_rst);
         togo = restart_;
         for (int i = 0; i < ns; ++i) order[i]->pred = 0;
       }
@@ -607,7 +659,176 @@ class Decoder {
       if (restart_) --togo;
     }
     pos_ = br.consumed_pos();
-    scanned_ = true;
+  }
+
+  // A progressive scan (T.81 G.1.2, jdphuff.c) into the coefficient
+  // buffer. The parameters jdphuff.c refuses are refused; the progressions
+  // it only warns about (an AC scan before the component's DC scan, a
+  // refinement whose Ah is not the previous Al) are refused too.
+  void progressive_scan(Component* const* order, int ns, int ss, int se,
+                        int ah, int al) {
+    const bool dc = ss == 0;
+    bool bad = dc ? se != 0 : (ss > se || se > 63 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad) fail("corrupt data: bad progressive scan parameters");
+    for (int i = 0; i < ns; ++i) {
+      Component& c = *order[i];
+      if (!dc && c.coef_bits[0] < 0)
+        fail("corrupt data: an AC scan before the DC scan (bad progression)");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != std::max(c.coef_bits[k], 0))
+          fail("corrupt data: successive approximation out of order (bad "
+               "progression)");
+        c.coef_bits[k] = al;
+      }
+      if (dc && ah == 0) {
+        if (!dc_[c.td].defined) fail("missing Huffman table");
+        dc_[c.td].derive(true);
+      } else if (!dc) {
+        if (!ac_[c.ta].defined) fail("missing Huffman table");
+        ac_[c.ta].derive(false);
+      }
+      c.pred = 0;
+    }
+    int mcux, mcuy;
+    scan_grid(order, ns, mcux, mcuy);
+    BitReader br{data_, n_, pos_};
+    const int total = mcux * mcuy;
+    int togo = restart_, next_rst = 0, eobrun = 0;
+    for (int mcu = 0; mcu < total; ++mcu) {
+      if (restart_ && togo == 0) {
+        restart(br, next_rst);
+        togo = restart_;
+        eobrun = 0;
+        for (int i = 0; i < ns; ++i) order[i]->pred = 0;
+      }
+      const int mx = mcu % mcux, my = mcu / mcux;
+      for (int i = 0; i < ns; ++i) {
+        Component& c = *order[i];
+        const int hh = ns == 1 ? 1 : c.h, vv = ns == 1 ? 1 : c.v;
+        for (int v = 0; v < vv; ++v)
+          for (int h = 0; h < hh; ++h) {
+            const int bx = mx * hh + h, by = my * vv + v;
+            int16_t* blk = c.coef.data() + (size_t(by) * c.bw + bx) * 64;
+            if (dc && ah == 0) dc_first(br, c, blk, al);
+            else if (dc) dc_refine(br, blk, al);
+            else if (ah == 0) ac_first(br, c, blk, ss, se, al, eobrun);
+            else ac_refine(br, c, blk, ss, se, al, eobrun);
+          }
+      }
+      if (restart_) --togo;
+    }
+    pos_ = br.consumed_pos();
+  }
+
+  // jdphuff.c::decode_mcu_DC_first.
+  void dc_first(BitReader& br, Component& c, int16_t* blk, int al) {
+    int s = br.decode(dc_[c.td]);
+    if (s) s = extend(br.get(s), s);
+    const int64_t dc_val = int64_t(c.pred) + s;
+    if (dc_val != int32_t(dc_val)) fail("corrupt data: DC value overflows");
+    c.pred = int(dc_val);
+    blk[0] = int16_t(uint32_t(c.pred) << al);  // JCOEF
+  }
+
+  // jdphuff.c::decode_mcu_DC_refine.
+  static void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.get(1)) blk[0] = int16_t(blk[0] | (1 << al));
+  }
+
+  // jdphuff.c::decode_mcu_AC_first: coefficients ss..se of one block, or
+  // one block of a pending end-of-band run.
+  void ac_first(BitReader& br, Component& c, int16_t* blk, int ss, int se,
+                int al, int& eobrun) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    const Huffman& t = ac_[c.ta];
+    for (int k = ss; k <= se; ++k) {
+      const int rs = br.decode(t);
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) fail("corrupt data: coefficient index past the band");
+        blk[kNatural[k]] = int16_t(uint32_t(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + br.get(r) - 1;
+        break;
+      }
+    }
+  }
+
+  // jdphuff.c::decode_mcu_AC_refine: one bit of precision more for every
+  // nonzero coefficient of the band (correction bits), newly nonzero ones
+  // as +-(1 << al), and end-of-band runs over blocks.
+  void ac_refine(BitReader& br, Component& c, int16_t* blk, int ss, int se,
+                 int al, int& eobrun) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t& coef) {
+      if (br.get(1) && (coef & p1) == 0)
+        coef = int16_t(coef + (coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      const Huffman& t = ac_[c.ta];
+      for (; k <= se; ++k) {
+        const int rs = br.decode(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          // A newly nonzero coefficient is always of size 1 (libjpeg
+          // warns otherwise).
+          if (s != 1) fail("corrupt data: bad Huffman code in a refinement");
+          s = br.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = (1 << r) + br.get(r);
+          break;
+        }
+        // Past already-nonzero coefficients (each with a correction bit)
+        // and r zero ones, to the one a newly nonzero value goes to.
+        for (; k <= se; ++k) {
+          int16_t& coef = blk[kNatural[k]];
+          if (coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+        }
+        if (s) {
+          if (k > se) fail("corrupt data: coefficient index past the band");
+          blk[kNatural[k]] = int16_t(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& coef = blk[kNatural[k]];
+        if (coef != 0) correct(coef);
+      }
+      --eobrun;
+    }
+  }
+
+  // After the last scan: every coefficient must be at full precision, as
+  // cv2's and libjpeg's simple progressions leave it; then each block of
+  // the padded grid goes through the IDCT into the component's plane.
+  void finish_progressive() {
+    for (int i = 0; i < ncomp_; ++i) {
+      Component& c = comp_[i];
+      for (int k = 0; k < 64; ++k)
+        if (c.coef_bits[k] != 0)
+          fail("progressive JPEG short of full refinement is not read");
+      const int stride = c.bw * 8;
+      c.plane.assign(size_t(stride) * c.bh * 8, 0);
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, c.qt,
+                     c.plane.data() + size_t(by) * 8 * stride + bx * 8,
+                     stride);
+      c.coef = std::vector<int16_t>();
+    }
   }
 
   void decode_block(BitReader& br, Component& c, int16_t* blk) {

@@ -118,12 +118,14 @@ CONFIGS = {
         image_size=32, patch_size=16, allow_hash_tokenizer=True),
 }
 
-# Published config.json keys of each component -> PipelineConfig fields.
+# Published config.json keys of each component -> PipelineConfig fields
+# (and the compute dtype, which the published files do not give: the port
+# records it beside the U-Net's, so a converted f32 pipeline stays f32).
 _CONFIG_KEYS = {
     "unet": {k: k for k in ("model_channels", "channel_mult",
                             "attention_resolutions", "num_res_blocks",
                             "num_head_channels", "context_dim", "ip_dim",
-                            "ip_weight")},
+                            "ip_weight", "compute_dtype")},
     "vae": {"block_out_channels": "vae_channels"},
     "text_encoder": {"hidden_size": "text_hidden",
                      "num_hidden_layers": "text_layers",
@@ -236,8 +238,9 @@ class MVDreamPipeline:
     def config_from_dir(path: str) -> PipelineConfig:
         """The PipelineConfig of a diffusers-layout directory, from each
         component's ``config.json`` (fields it does not give keep their
-        defaults, bf16 compute among them; no ``image_encoder/`` means no
-        ip branch)."""
+        defaults: bf16 compute where the U-Net's names no
+        ``compute_dtype``, as published ones do not; no
+        ``image_encoder/`` means no ip branch)."""
         fields: Dict = {}
         for comp, keys in _CONFIG_KEYS.items():
             p = os.path.join(path, comp, "config.json")

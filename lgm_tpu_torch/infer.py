@@ -13,12 +13,11 @@ Then the LGM forward -> ``.ply`` -> a 180-frame orbit at the preset's
 output size (flatsort, dup 32, with depth; kernel K2 per frame on the
 card; K1 in the U-Nets).
 
-Input files are PNGs or baseline JPEGs, read by the port's own readers
-(``io/image.py``: ``io/png.py``, ``io/jpeg.py``) with
+Input files are PNGs or JPEGs (sequential or progressive), read by the
+port's own readers (``io/image.py``: ``io/png.py``, ``io/jpeg.py``) with
 ``cv2.imread(..., IMREAD_UNCHANGED)``'s pixels, so the CLI runs where
 ``cv2`` is absent; any other format, and a JPEG the reader refuses
-(progressive, arithmetic-coded, 12-bit, CMYK), raises an error that names
-it. ``image_to_views`` and ``process`` take arrays. ``process`` writes the
+(arithmetic-coded, 12-bit, CMYK, ...), raises an error that names it. ``image_to_views`` and ``process`` take arrays. ``process`` writes the
 orbit as mp4 through OpenCV where ``cv2`` imports; otherwise the frames
 go to ``<stem>.frames.npy`` (uint8 [F, S, S, 3]), and the path written is
 printed either way.

@@ -1,5 +1,5 @@
-"""Baseline JPEG reading in the port's own code: the card host cannot be
-assumed to have ``cv2``, PIL or ``libjpeg``.
+"""JPEG reading in the port's own code: the card host cannot be assumed
+to have ``cv2``, PIL or ``libjpeg``.
 
 The decoder is host C++ (``data/csrc/jpeg_decode.cpp``, written from ITU-T
 T.81 and libjpeg's documented arithmetic, linking no image library), built
@@ -7,10 +7,12 @@ on first use by ``ops/_build.py::build_host`` and called through
 ``ctypes``, which releases the GIL, so decoder threads run in parallel. It
 computes what libjpeg-turbo computes at its defaults bit for bit: the
 ``JDCT_ISLOW`` inverse DCT, fancy upsampling (h2v1, h2v2, h1v2) and the
-``jdcolor.c`` YCbCr -> RGB tables, for sequential Huffman-coded files
-(SOF0, SOF1) of 8-bit samples with one or three components at any
-integral sampling factors, restart markers and 8- or 16-bit quantisation
-tables. Two views of a decoded file:
+``jdcolor.c`` YCbCr -> RGB tables, for sequential (SOF0, SOF1) and
+progressive (SOF2) Huffman-coded files of 8-bit samples with one or three
+components at any integral sampling factors, restart markers and 8- or
+16-bit quantisation tables. A progressive file's scans fill a
+coefficient buffer that is decoded as a sequential file's blocks once its
+last scan is read. Two views of a decoded file:
 
 - ``read_rgba``: 8-bit RGBA and ``has_alpha`` False, as
   ``native/dataload.cpp::decode_jpeg`` gives it (lgm_tpu's decode:
@@ -19,9 +21,11 @@ tables. Two views of a decoded file:
   cv2.IMREAD_UNCHANGED)`` returns: gray [H, W] or BGR [H, W, 3]. The EXIF
   orientation is not applied, as ``IMREAD_UNCHANGED`` does not apply it.
 
-It refuses, with ``JpegError``, what it does not read: progressive,
-lossless, hierarchical and arithmetic-coded files, 12-bit samples, CMYK /
-YCCK (four components), DNL, non-interleaved scans of a colour image, and
+It refuses, with ``JpegError``, what it does not read: lossless,
+hierarchical and arithmetic-coded files, 12-bit samples, CMYK / YCCK (four
+components), DNL, non-interleaved sequential scans of a colour image,
+progressive files whose scans stop short of full refinement (libjpeg
+would smooth their blocks) or come in an order libjpeg warns of, and
 truncated or corrupt data or a missing table.
 """
 

@@ -16,7 +16,7 @@ Data contract (NHWC at the public functions, as in JAX):
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from lgm_tpu_torch.config import Options
+from lgm_tpu_torch.models.init import init_like_flax_
 from lgm_tpu_torch.models.lpips import LPIPS
 from lgm_tpu_torch.models.unet import UNet
 from lgm_tpu_torch.ops.gsplat.api import render_views
@@ -51,9 +52,14 @@ def activate_gaussians(x: torch.Tensor) -> torch.Tensor:
 
 class LGM(nn.Module):
     """Splatter-image regressor: ``model(images)`` -> activated Gaussians
-    [B, V_in * splat^2, 14]. The view count comes from the input shape."""
+    [B, V_in * splat^2, 14]. The view count comes from the input shape.
+    Given a ``generator``, every conv and dense (the U-Net's, then the
+    final 1x1) starts from flax's initialisers, as ``lgm_tpu``'s LGM does
+    (``models/init.py``); without one, from PyTorch's, for weights that
+    are loaded next."""
 
-    def __init__(self, opt: Options, dtype=torch.bfloat16):
+    def __init__(self, opt: Options, dtype=torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.opt = opt
         self.unet = UNet(
@@ -68,6 +74,8 @@ class LGM(nn.Module):
         )
         # Final 1x1 conv, in f32 (ref: core/models.py:34).
         self.conv = nn.Conv2d(14, 14, 1)
+        if generator is not None:
+            init_like_flax_(self, generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, V, H, W, C = images.shape
@@ -141,16 +149,19 @@ class LGMWithLoss(nn.Module):
     ``lgm``, every [B, V] supervision view rendered with gradient, the full
     loss stack. ``lpips_loss`` is frozen (no gradient, no optimizer
     state); it exists when ``opt.lambda_lpips > 0``. The rasterizer and the
-    loss run in f32 whatever ``dtype`` the networks compute in."""
+    loss run in f32 whatever ``dtype`` the networks compute in.
+    ``generator`` draws both networks' initial weights, the LGM's first
+    (``LGM``, ``LPIPS``)."""
 
     def __init__(self, opt: Options, dtype=torch.bfloat16,
-                 backend: str = "flatsort"):
+                 backend: str = "flatsort",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.opt = opt
         self.dtype = dtype
         self.backend = rasterizer_backend(backend)
-        self.lgm = LGM(opt, dtype)
-        self.lpips_loss = (LPIPS(dtype=dtype)
+        self.lgm = LGM(opt, dtype, generator)
+        self.lpips_loss = (LPIPS(dtype=dtype, generator=generator)
                            if opt.lambda_lpips > 0 else None)
 
     def _lpips_chunk(self, gt: torch.Tensor, pr: torch.Tensor):

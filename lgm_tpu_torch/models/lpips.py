@@ -11,8 +11,9 @@ Weights: ``load_lpips_params`` reads the ``.npz`` that
 ``lgm_tpu/tools/convert_lpips.py`` writes (Flax names, HWIO kernels);
 ``lpips_state_from_torch`` maps the released checkpoints' canonical names
 (torchvision ``features.{i}`` and ``lin{k}.model.1.weight``) for
-``load_lpips_state``. Without either, the tower keeps PyTorch's default
-init under the caller's seed and the heads hold 1/C, as lgm_tpu's
+``load_lpips_state``. Without either, the tower starts from flax's
+initialisers drawn from the caller's generator (``models/init.py``: as
+lgm_tpu's tower, which sets none) and the heads hold 1/C, as lgm_tpu's
 deterministic init does (a random-VGG perceptual surrogate; not the
 released metric).
 
@@ -23,12 +24,14 @@ normalisation run in f32.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from lgm_tpu_torch.models.init import init_like_flax_
 
 # Channel normalisation of the standard LPIPS scaling layer.
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -45,9 +48,12 @@ class LPIPS(nn.Module):
 
     Parameters ``vgg.conv{s}_{c}.weight/bias`` (OIHW) and ``lin{k}`` [C].
     ``stages`` keeps VGG-16's structure at other widths (the golden
-    fixture's reduced tower). Frozen: no parameter requires grad."""
+    fixture's reduced tower). Frozen: no parameter requires grad. Given a
+    ``generator``, the convs start from flax's initialisers; without one,
+    from PyTorch's, for weights that are loaded next."""
 
-    def __init__(self, stages=STAGES, dtype=torch.float32):
+    def __init__(self, stages=STAGES, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stages = tuple(tuple(s) for s in stages)
         self.dtype = dtype
@@ -63,6 +69,8 @@ class LPIPS(nn.Module):
                              persistent=False)
         self.register_buffer("scale", torch.tensor(_SCALE).view(1, 3, 1, 1),
                              persistent=False)
+        if generator is not None:
+            init_like_flax_(self.vgg, generator)
         self.requires_grad_(False)
 
     def features(self, x: torch.Tensor):
@@ -117,20 +125,30 @@ def load_lpips_params(model: LPIPS, npz_path: str) -> None:
 
 def lpips_state_from_torch(sd: Mapping[str, object]) -> Dict[str, np.ndarray]:
     """Canonical torch names (torchvision ``features.{i}.weight/bias``,
-    ``lin{k}.model.1.weight`` [1, C, 1, 1]) -> this module's state-dict
-    names."""
+    ``lin{k}.model.1.weight`` [1, C, 1, 1], or ``lins.{k}.…``), each
+    optionally under ``net.``, ``vgg.`` or ``module.`` as
+    ``lgm_tpu/tools/convert_lpips.py`` takes them -> this module's
+    state-dict names."""
+    def get(name):
+        for prefix in ("", "net.", "vgg.", "module."):
+            if prefix + name in sd:
+                return sd[prefix + name]
+        return None
+
     out: Dict[str, np.ndarray] = {}
     for si, idxs in enumerate(VGG16_CONV_IDX):
         for ci, idx in enumerate(idxs):
             for leaf in ("weight", "bias"):
-                name = f"features.{idx}.{leaf}"
-                if name in sd:
+                val = get(f"features.{idx}.{leaf}")
+                if val is not None:
                     out[f"vgg.conv{si}_{ci}.{leaf}"] = np.asarray(
-                        sd[name], np.float32)
+                        val, np.float32)
     for k in range(len(VGG16_CONV_IDX)):
-        name = f"lin{k}.model.1.weight"
-        if name in sd:
-            out[f"lin{k}"] = np.asarray(sd[name], np.float32).reshape(-1)
+        val = get(f"lin{k}.model.1.weight")
+        if val is None:
+            val = get(f"lins.{k}.model.1.weight")
+        if val is not None:
+            out[f"lin{k}"] = np.asarray(val, np.float32).reshape(-1)
     return out
 
 

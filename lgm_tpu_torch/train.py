@@ -254,19 +254,21 @@ class TrainState:
 
 def create_state(opt: Options, device="cuda", backend: Optional[str] = None,
                  seed: int = 42) -> TrainState:
-    """The model in the preset's compute dtype with weights initialised
-    under ``seed`` (LPIPS from ``opt.lpips_weights`` when given), on
-    ``device``, and its optimizer (``main`` shards it under ``zero1``)."""
+    """The model in the preset's compute dtype, on ``device``, with
+    flax's initialisers drawn from a CPU generator seeded with ``seed``
+    (the same weights on every device; LPIPS from ``opt.lpips_weights``
+    when given), and its optimizer (``main`` shards it under ``zero1``)."""
     dev = resolve_device(device) if isinstance(device, str) else device
     use_full_float32()
     dtype = torch.bfloat16 if opt.mixed_precision == "bf16" else torch.float32
     rng_devices = ([torch.cuda.current_device() if dev.index is None
                     else dev.index] if dev.type == "cuda" else [])
-    with torch.random.fork_rng(devices=rng_devices):
-        torch.manual_seed(seed)
-        with dev:
-            model = LGMWithLoss(opt, dtype=dtype,
-                                backend=backend or opt.rasterizer)
+    # PyTorch's default init, drawn from the global RNG as the modules are
+    # built and then replaced, must not move the caller's RNG.
+    with torch.random.fork_rng(devices=rng_devices), dev:
+        model = LGMWithLoss(opt, dtype=dtype,
+                            backend=backend or opt.rasterizer,
+                            generator=torch.Generator().manual_seed(seed))
     if opt.lpips_weights and model.lpips_loss is not None:
         load_lpips_params(model.lpips_loss, opt.lpips_weights)
     return TrainState(model, make_optimizer(opt, model))

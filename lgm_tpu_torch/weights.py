@@ -19,8 +19,10 @@ name maps (reference MVDream U-Net names, diffusers' VAE names) and
 transformers' Flax CLIP names, giving the state dicts of the port's
 ``diffusion`` modules.
 
-``diffusion_train_state_to_torch`` turns ``lgm_tpu``'s diffusion
-finetune state (parameters, Adam's moments, the EMA) into the port's
+``lgm_train_state_to_torch`` turns ``lgm_tpu.train``'s state (the
+parameters, the optax chain's state, the step) into the port's
+``train.save_checkpoint`` dict; ``diffusion_train_state_to_torch`` turns
+``lgm_tpu``'s diffusion finetune state (parameters, Adam's moments, the EMA) into the port's
 trainer state, through the same U-Net name map.
 
 ``nerf_params_to_torch`` maps the mesh converter's Flax NeRF field
@@ -28,13 +30,15 @@ trainer state, through the same U-Net name map.
 ``convert.NerfField``.
 
 Orbax checkpoints written by ``lgm_tpu`` need JAX to read and are not
-loaded here (``scripts/dckpt_to_torch.py`` converts a finetune's).
+loaded here: ``scripts/ckpt_to_torch.py`` converts a trainer's ``ckpt_N``,
+``scripts/dckpt_to_torch.py`` a finetune's ``dckpt_N`` and
+``scripts/pipeline_to_torch.py`` a pipeline directory.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -247,6 +251,42 @@ def _adam_state(tree):
         if found is not None:
             return found
     return None
+
+
+def lgm_train_state_to_torch(state: Mapping, names: Sequence[str]) -> Dict:
+    """``lgm_tpu.train``'s state (numpy trees ``{"params", "opt_state",
+    "step"}``: ``LGMWithLoss``'s parameters; optax's ``multi_transform``
+    of the clip and ``adamw`` over the LGM, ``set_to_zero`` over LPIPS,
+    wrapped in ``MultiSteps`` under gradient accumulation) -> the port's
+    ``train.save_checkpoint`` dict: the parameters under the port's
+    ``LGMWithLoss`` names, and ``train.Optimizer``'s state with Adam's
+    count, its bf16 first moment (ROADMAP C4: kept in bf16, as optax keeps
+    it), its f32 second moment and, under accumulation, the mini-step and
+    the running mean of the gradients, each a list in the order of
+    ``names``, the port's LGM parameter names (``LGM.named_parameters``)."""
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise KeyError("no Adam state (mu, nu) in opt_state")
+
+    def lgm_list(tree: Mapping, dtype) -> List[torch.Tensor]:
+        sd = flax_params_to_state_dict({"lgm": tree["lgm"]})
+        missing = sorted(set(f"lgm.{n}" for n in names) ^ set(sd))
+        if missing:
+            raise KeyError(f"parameter names differ: {missing[:4]}")
+        return [torch.as_tensor(sd[f"lgm.{n}"]).to(dtype) for n in names]
+
+    opt_state = {"count": int(np.asarray(adam.count)),
+                 "mu": lgm_list(adam.mu, torch.bfloat16),
+                 "nu": lgm_list(adam.nu, torch.float32),
+                 "mini_step": 0, "acc": None}
+    multi = state["opt_state"]
+    if hasattr(multi, "acc_grads"):  # optax.MultiSteps' state
+        opt_state["mini_step"] = int(np.asarray(multi.mini_step))
+        opt_state["acc"] = lgm_list(multi.acc_grads, torch.float32)
+    return {"params": {k: torch.as_tensor(v) for k, v in
+                       flax_params_to_state_dict(state["params"]).items()},
+            "opt_state": opt_state,
+            "step": int(np.asarray(state["step"]))}
 
 
 def _unet_tensors(tree: Mapping, dtype=torch.float32) -> Dict:

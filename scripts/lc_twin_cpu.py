@@ -7,9 +7,10 @@ flags on synthetic scenes, at the same time, in their own workspaces under
 ``--out``; the plain PyTorch paths run in the port (no kernel). The
 script then prints, for each, the eval PSNR at every eval and the mean
 logged train loss over each 500 steps, as one JSON line, and writes
-it to ``<out>/compare.json``. By default the two start from their own
-random weights (flax's initialisers in lgm_tpu, PyTorch's in the port),
-so a pair is one draw of each; ``--port-init lgm_tpu`` starts the port
+it to ``<out>/compare.json``. By default (``--port-init torch``) the two
+start from their own random weights, each drawn by its own framework
+from flax's initialisers (the port's through ``models/init.py``), so a
+pair is one draw of each; ``--port-init lgm_tpu`` starts the port
 from lgm_tpu's initial weights instead (its ``create_state`` under
 ``PRNGKey(42)``, through ``weights.flax_params_to_state_dict``, saved as
 the port's ``ckpt_0`` and passed as ``--resume``).

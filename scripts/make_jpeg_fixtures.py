@@ -21,10 +21,21 @@ Files:
   inputs of ``chip_smoke.py``'s ``infer_cli`` and ``app_http``);
   ``bench512``, ``bench1024``: the scene at 512² and 1024², 4:2:0 at
   quality 90 (decode times);
-- ``refused/``: progressive, lossless, arithmetic (SOF9), 12-bit, CMYK (4
+- progressive files (``IMWRITE_JPEG_PROGRESSIVE``, libjpeg's simple
+  progression: DC and AC first and refinement scans): ``progressive``
+  (the pattern at 4:2:0, quality 75), ``p444``, ``p422``, ``p440``,
+  ``pgray``, ``pq5``, ``pq50``, ``pq95``, ``prst`` (a restart interval of
+  2 MCUs), ``pview0``-``pview3`` (the views, progressive),
+  ``pbench512``, ``pbench1024``;
+- ``refused/``: lossless, arithmetic (SOF9), 12-bit, CMYK (4
   components), DNL (height 0), non-interleaved (a 3-component frame with a
-  1-component scan), missing Huffman and quantisation tables, a corrupt
-  Huffman table, corrupt entropy-coded data and a truncated file.
+  1-component sequential scan), missing Huffman and quantisation tables, a
+  corrupt Huffman table, corrupt entropy-coded data and a truncated file;
+  of a progressive file: its last scan dropped (``progressive_partial``:
+  short of full refinement, which libjpeg would smooth), its first (DC)
+  scan dropped (``progressive_order``: an AC scan before the DC scan,
+  which libjpeg warns of) and a cut in its third scan
+  (``progressive_truncated``).
 
 Run (needs cv2): python scripts/make_jpeg_fixtures.py [--out DIR]
 """
@@ -205,10 +216,43 @@ def truncated(data: bytes) -> bytes:
     return data[:e + (len(data) - e) // 2]
 
 
+def scans(data: bytes):
+    """(start, end) of each scan of a file: its SOS segment and the
+    entropy-coded data after it, restart markers included, up to the next
+    marker."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xD9:
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if data[pos + 1] == 0xDA:
+            # FF 00 is a stuffed byte, FF D0-D7 a restart marker.
+            while not (data[end] == 0xFF and data[end + 1] not in
+                       (0x00, *range(0xD0, 0xD8))):
+                end += 1
+            out.append((pos, end))
+        pos = end
+    return out
+
+
+def drop_scan(data: bytes, index: int) -> bytes:
+    """``data`` without its scan ``index`` (its SOS and coded data)."""
+    s, e = scans(data)[index]
+    return data[:s] + data[e:]
+
+
+def refused_progressive(progressive: bytes) -> dict:
+    """Refusal class -> a progressive file the decoder must refuse."""
+    s, e = scans(progressive)[2]
+    return {
+        "progressive_partial": drop_scan(progressive, -1),
+        "progressive_order": drop_scan(progressive, 0),
+        "progressive_truncated": progressive[:(s + e) // 2],
+    }
+
+
 def refused(base: bytes, progressive: bytes) -> dict:
     """Refusal class -> bytes the decoder must refuse."""
     return {
-        "progressive": progressive,
+        **refused_progressive(progressive),
         "lossless": set_sof(base, 0xC3),
         "arithmetic": set_sof(base, 0xC9),
         "12bit": sof_byte(base, 0, 12),
@@ -281,7 +325,18 @@ def files() -> tuple:
         taken[f"view{i}"] = encode(views[256][i], 90)
     taken["bench512"] = encode(views[512][0], 90)
     taken["bench1024"] = encode(views[1024][0], 90)
-    return taken, refused(base, encode(img, 75, progressive=True))
+    taken["progressive"] = encode(img, 75, progressive=True)
+    for k in ("444", "422", "440"):
+        taken[f"p{k}"] = encode(img, 75, k, progressive=True)
+    taken["pgray"] = encode(img[..., 1], 75, progressive=True)
+    for q in (5, 50, 95):
+        taken[f"pq{q}"] = encode(img, q, progressive=True)
+    taken["prst"] = encode(img, 75, rst=2, progressive=True)
+    for i in range(4):
+        taken[f"pview{i}"] = encode(views[256][i], 90, progressive=True)
+    taken["pbench512"] = encode(views[512][0], 90, progressive=True)
+    taken["pbench1024"] = encode(views[1024][0], 90, progressive=True)
+    return taken, refused(base, taken["progressive"])
 
 
 def main(argv=None) -> int:

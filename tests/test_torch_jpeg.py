@@ -1,10 +1,12 @@
-"""The port's baseline JPEG decoder (lgm_tpu_torch/io/jpeg.py over
+"""The port's JPEG decoder (lgm_tpu_torch/io/jpeg.py over
 data/csrc/jpeg_decode.cpp, built here with the host compiler) against
 ``cv2.imread(IMREAD_UNCHANGED)`` (cv2's bundled libjpeg-turbo) and against
 lgm_tpu's native decode (``lgm_tpu.native.decode_rgba``, the host's
 libjpeg): the same pixels bit for bit on files cv2 writes at every
 quality, sampling factor, restart interval and size listed, gray and
-optimised-Huffman files and the colour-space markers; every refused class
+optimised-Huffman files and the colour-space markers, sequential and
+progressive (libjpeg's simple progression: no block smoothing is left to
+apply once every coefficient is fully refined); every refused class
 raises ``JpegError``; the committed fixtures' manifest holds cv2's
 digests; ``io/image.py`` dispatches PNG and JPEG by their magic bytes."""
 
@@ -12,7 +14,6 @@ import hashlib
 import importlib.util
 import json
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -22,6 +23,7 @@ import cv2
 
 from lgm_tpu import native
 from lgm_tpu_torch.io import ImageError, image, jpeg, png
+from native_decode import require_native
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,21 +49,9 @@ def _cv2(data: bytes) -> np.ndarray:
     return arr
 
 
-def _native_available() -> bool:
-    """lgm_tpu builds its native decode at first use; another test worker
-    may be writing the library at that moment, so try again a few
-    times."""
-    for _ in range(40):
-        if native.dataload_available():
-            return True
-        native._dl_failed = False
-        time.sleep(0.5)
-    return False
-
-
 def _native_rgba(data: bytes, tmp_path) -> np.ndarray:
     """lgm_tpu's native decode (float32 p / 255) read back as uint8."""
-    assert _native_available(), "lgm_tpu's native decode does not build"
+    require_native()
     path = str(tmp_path / "native.jpg")
     with open(path, "wb") as fh:
         fh.write(data)
@@ -147,14 +137,83 @@ def test_exif_orientation_not_applied():
     _check(data)
 
 
+@pytest.mark.parametrize("sampling", SAMPLINGS + ["gray"])
+@pytest.mark.parametrize("quality", [5, 50, 95, 100])
+def test_progressive(quality, sampling, tmp_path):
+    """Progressive files (SOF2: DC and AC first and refinement scans,
+    end-of-band runs, correction bits, non-interleaved AC scans over each
+    component's own block grid) at each sampling and quality."""
+    img = fx.pattern(37, 53, quality)
+    data = (fx.encode(img[..., 1], quality, progressive=True)
+            if sampling == "gray" else
+            fx.encode(img, quality, sampling, progressive=True))
+    assert b"\xff\xc2" in data and len(fx.scans(data)) > 2
+    _check(data, tmp_path)
+
+
+@pytest.mark.parametrize("sampling", SAMPLINGS)
+@pytest.mark.parametrize("hw", [(1, 1), (7, 13), (255, 257)])
+def test_progressive_sizes(hw, sampling, tmp_path):
+    _check(fx.encode(fx.pattern(*hw), 75, sampling, progressive=True),
+           tmp_path)
+
+
+@pytest.mark.parametrize("sampling", ["444", "420", "411"])
+@pytest.mark.parametrize("interval", [1, 2, 7])
+def test_progressive_restart_intervals(interval, sampling, tmp_path):
+    """Restarts in every scan; the end-of-band run does not cross one."""
+    data = fx.encode(fx.pattern(45, 61), 75, sampling, rst=interval,
+                     progressive=True)
+    assert b"\xff\xdd" in data and b"\xff\xd0" in data
+    _check(data, tmp_path)
+
+
+@pytest.mark.parametrize("sampling", ["422", "420"])
+def test_progressive_optimized_and_dht_between_scans(sampling, tmp_path):
+    """Optimised tables: each scan's DHT comes between the scans."""
+    data = fx.encode(fx.pattern(37, 53), 90, sampling, optimize=True,
+                     progressive=True)
+    first, _ = fx.scans(data)[0]
+    assert b"\xff\xc4" in data[first:]
+    _check(data, tmp_path)
+
+
+@pytest.mark.parametrize("name", ["progressive.jpg", "pgray.jpg",
+                                  "prst.jpg", "pview0.jpg"])
+def test_progressive_read_sites(name, tmp_path):
+    """Every read site's entry (``io.image``'s readers, by file and by
+    bytes) gives cv2's and lgm_tpu's native pixels for a progressive
+    file."""
+    path = os.path.join(FIXTURES, name)
+    ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(image.imread(path), ref)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    np.testing.assert_array_equal(image.decode_cv2(data, name), ref)
+    rgba, has_alpha = image.read_rgba(path)
+    assert not has_alpha
+    np.testing.assert_array_equal(rgba, _native_rgba(data, tmp_path))
+
+
 def _refused():
+    """Each class, and progressive files that stop short of full
+    refinement (libjpeg would smooth their blocks) at each sampling, gray
+    too: of the progressive classes only those stay refused."""
     img = fx.pattern(33, 47)
     base = fx.encode(img, 75)
-    cases = fx.refused(base, fx.encode(img, 75, progressive=True))
+    prog = fx.encode(img, 75, progressive=True)
+    cases = fx.refused(base, prog)
+    cases["progressive"] = cases["progressive_partial"]
     for s in SAMPLINGS:
-        cases[f"progressive_{s}"] = fx.encode(img, 90, s, progressive=True)
-    cases["progressive_gray"] = fx.encode(img[..., 0], 75,
-                                          progressive=True)
+        cases[f"progressive_{s}"] = fx.drop_scan(
+            fx.encode(img, 90, s, progressive=True), -1)
+    cases["progressive_gray"] = fx.drop_scan(
+        fx.encode(img[..., 0], 75, progressive=True), -1)
+    for cut in (0.1, 0.5, 0.95):
+        _, e = fx.scans(prog)[0]
+        cases[f"progressive_cut_{cut}"] = prog[:e + int((len(prog) - e)
+                                                        * cut)]
+    cases["progressive_no_eoi"] = prog[:-2]
     for cut in (0.1, 0.5, 0.95):
         _, e = fx.find(base, 0xDA)
         cases[f"truncated_{cut}"] = base[:e + int((len(base) - e) * cut)]
@@ -189,6 +248,35 @@ def test_mutated_files_decode_or_raise(seed):
     bases = [fx.encode(fx.pattern(33, 47), 75, s, rst=r)
              for s in SAMPLINGS for r in (0, 2)]
     bases.append(fx.encode(fx.pattern(20, 30)[..., 0], 60))
+    for it in range(300):
+        data = bytearray(bases[it % len(bases)])
+        for _ in range(rng.integers(1, 6)):
+            p = rng.integers(0, len(data))
+            mode = rng.integers(0, 3)
+            if mode == 0:
+                data[p] = rng.integers(0, 256)
+            elif mode == 1:
+                data = data[:p] + data[p + rng.integers(1, 8):]
+            else:
+                data = data[:p] + rng.integers(
+                    0, 256, rng.integers(1, 8)).astype(np.uint8).tobytes() \
+                    + data[p:]
+        try:
+            out = jpeg.decode(bytes(data))
+        except jpeg.JpegError:
+            continue
+        assert out.dtype == np.uint8 and out.size > 0
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_mutated_progressive_files_decode_or_raise(seed):
+    """As above, for progressive files (each sampling, with and without
+    restarts, gray)."""
+    rng = np.random.default_rng(100 + seed)
+    bases = [fx.encode(fx.pattern(33, 47), 75, s, rst=r, progressive=True)
+             for s in SAMPLINGS for r in (0, 2)]
+    bases.append(fx.encode(fx.pattern(20, 30)[..., 0], 60,
+                           progressive=True))
     for it in range(300):
         data = bytearray(bases[it % len(bases)])
         for _ in range(rng.integers(1, 6)):

@@ -21,14 +21,19 @@ from lgm_tpu_torch.config import get_config
 from lgm_tpu_torch.data import decode, provider
 from lgm_tpu_torch.utils import augment
 from test_native_loader import _cv2_reference
+from native_decode import require_native
 from test_provider import _render_views
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-pytestmark = pytest.mark.skipif(
-    not native.dataload_available(), reason="lgm_tpu's native decode is "
-    "its default path and the reference here")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_reference():
+    """lgm_tpu's native decode is its default path and the reference
+    here: built or loaded at the first test, asserted, never skipped."""
+    require_native()
 
 
 def _write_rgba(path, rgb, alpha):
@@ -180,12 +185,12 @@ def test_load_views_on_jpegs_matches_native(jpeg_views, sizes):
         assert not a[~ours[4]].any()
 
 
-def test_load_views_skips_a_refused_jpeg(jpeg_views, tmp_path):
-    """A JPEG the port refuses (progressive) is an unreadable entry, as a
-    refused PNG is: ok False and zero pixels, the others decoded."""
-    img = cv2.imread(jpeg_views[0], cv2.IMREAD_UNCHANGED)
-    prog = str(tmp_path / "progressive.jpg")
-    cv2.imwrite(prog, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+def test_load_views_skips_a_refused_jpeg(jpeg_views):
+    """A JPEG the port refuses (a progressive file whose scans stop short
+    of full refinement) is an unreadable entry, as a refused PNG is: ok
+    False and zero pixels, the others decoded."""
+    prog = os.path.join(ROOT, "tests", "fixtures", "jpeg", "refused",
+                        "progressive_partial.jpg")
     rgb, mask, _, _, ok = decode.load_views([jpeg_views[0], prog], 32)
     assert list(ok) == [True, False]
     assert not rgb[1].any() and not mask[1].any() and rgb[0].any()
