@@ -14,7 +14,9 @@ with the launch counts set to 0 just before it and read just after (and
 checked against the counts each path must give):
 
 - inference: LGM ``big`` at full width with seeded weights, forward ->
-  .ply -> 180-frame orbit at 512² (kernels K1, K2);
+  .ply -> 180-frame orbit at 512² (kernels K1, K2), then the orbit split
+  over the host's cards (``orbit_devices``: every card, one on a one-card
+  host, byte for byte the one-card video);
 - training: ``lgm_tpu_torch.train`` at ``big``, batch 2, seeded weights
   and synthetic batches, one cold and three warm steps through the
   trainer's own step function (K1, K1ᵇ, K2, K2ᵇ), then K1, K1ᵇ and K2ᵇ
@@ -87,6 +89,13 @@ checked against the counts each path must give):
   the four JPEG views, K1 16 and K2 180 a request, the served .ply
   against the forward's).
 
+K1 and K1ᵇ are also held at a vp rank's lengths of the view-sharded
+U-Net (``vp_kernels``: LGM big's three site shapes at B = 1 and bs2, vp 2
+and 4, each rank's S/vp queries against S keys, K1ᵇ with f32 dK/dV
+partials; the ranks' rows against the full-length call and the vp sum of
+the partials against its dK and dV, beside SDPA and the bound). A vp
+world needs a card a rank, so on one card only its kernels run.
+
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero. The last three lines are the ``kernels`` summary, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Without a
@@ -121,6 +130,17 @@ K1_SHAPES = [((16, 4096, 32), 5), ((16, 1024, 64), 5), ((16, 256, 64), 6)]
 # K1ᵇ in the big bs2 train step: (BH, S, D) with BH = 2 * 16 heads, and
 # the sites of that shape (as K1_SHAPES).
 K1B_SHAPES = [((32, 4096, 32), 5), ((32, 1024, 64), 5), ((32, 256, 64), 6)]
+# The view-sharded U-Net's attention sites at the big preset, (BH, S, D)
+# at B = 1 and bs2, each run by vp ranks of S/vp queries against S keys.
+VP_SHAPES = [(BH, S, D) for BH in (16, 32)
+             for S, D in ((4096, 32), (1024, 64), (256, 64))]
+VP_DEGREES = (2, 4)
+# The vp sum of K1ᵇ's f32 dK/dV partials against the full-length call's
+# bf16 dK/dV: one bf16 step of each element, plus this share of the
+# tensor's largest |value| for the f32 sums' other grouping (up to 6e-6
+# measured at 4,096 keys, where a sum that cancels to near 0 can differ by
+# more than a step of its own magnitude).
+DKV_SUM_SCALE_TOL = 2.0 ** -16
 # K1 and K1ᵇ tolerance: bf16 outputs, whose rounding step is 2^-8 of the
 # value; kernel and plain version sum in different orders (and K1ᵇ's bf16
 # dS and P may round the other way), so allow two steps of the scale.
@@ -305,26 +325,29 @@ def k3b_bound(work: dict, T: int, P: int, K: int):
         + 2 * T * P * 8 * 4 + T * 16 * K * 4)
 
 
-def k1_bound(BH: int, S: int, D: int):
-    """K1's bound: 4 BH S² D tensor-core flops (Q.Kᵀ, P.V), BH S² exps
-    and ~5 f32 operations per logit; q, k, v read, o and the f32 row
-    statistic written once."""
+def k1_bound(BH: int, Sq: int, Sk: int, D: int):
+    """K1's bound for Sq queries against Sk keys: 4 BH Sq Sk D
+    tensor-core flops (Q.Kᵀ, P.V), BH Sq Sk exps and ~5 f32 operations
+    per logit; q, k, v read, o and the f32 row statistic written once."""
     return bound(
-        {"tensor": 4.0 * BH * S * S * D / BF16_TENSOR_FLOPS,
-         "exp": BH * S * S / SFU_EXP_PER_S,
-         "f32": 5.0 * BH * S * S / F32_FLOPS},
-        4 * BH * S * D * 2 + BH * S * 4)
+        {"tensor": 4.0 * BH * Sq * Sk * D / BF16_TENSOR_FLOPS,
+         "exp": BH * Sq * Sk / SFU_EXP_PER_S,
+         "f32": 5.0 * BH * Sq * Sk / F32_FLOPS},
+        2 * BH * Sq * D * 2 + 2 * BH * Sk * D * 2 + BH * Sq * 4)
 
 
-def k1b_bound(BH: int, S: int, D: int):
-    """K1ᵇ's bound: 10 BH S² D tensor-core flops (Q.Kᵀ, dO.Vᵀ, dS.K,
-    dSᵀ.Q, Pᵀ.dO), BH S² exps and ~5 f32 operations per logit; q, k, v,
-    o, dO and the f32 row statistic read and dq, dk, dv written once."""
+def k1b_bound(BH: int, Sq: int, Sk: int, D: int, dkv_bytes: int = 2):
+    """K1ᵇ's bound for Sq queries against Sk keys: 10 BH Sq Sk D
+    tensor-core flops (Q.Kᵀ, dO.Vᵀ, dS.K, dSᵀ.Q, Pᵀ.dO), BH Sq Sk exps
+    and ~5 f32 operations per logit; q, o, dO, k, v and the f32 row
+    statistic read, dq (bf16) and dk, dv (``dkv_bytes`` an element: 4
+    for a vp rank's f32 partials) written once."""
     return bound(
-        {"tensor": 10.0 * BH * S * S * D / BF16_TENSOR_FLOPS,
-         "exp": BH * S * S / SFU_EXP_PER_S,
-         "f32": 5.0 * BH * S * S / F32_FLOPS},
-        8 * BH * S * D * 2 + BH * S * 4)
+        {"tensor": 10.0 * BH * Sq * Sk * D / BF16_TENSOR_FLOPS,
+         "exp": BH * Sq * Sk / SFU_EXP_PER_S,
+         "f32": 5.0 * BH * Sq * Sk / F32_FLOPS},
+        4 * BH * Sq * D * 2 + 2 * BH * Sk * D * (2 + dkv_bytes)
+        + BH * Sq * 4)
 
 
 def row_errors(ours, ref):
@@ -577,7 +600,7 @@ def phase_k1(dev):
                 sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], scale=scale),
                     launches=K1_LAUNCHES)
-            b_ms, b_by = k1_bound(BH, S, D)
+            b_ms, b_by = k1_bound(BH, S, S, D)
             emit("k1", per=per, shape=[BH, S, D], sites=sites,
                  max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
                  lse_tol=lse_tol, kernel_ms=ms, plain_ms=plain_ms,
@@ -597,6 +620,186 @@ def phase_k1(dev):
          step_kernel_over_library=sums["step"]["ms"]
          / sums["step"]["library_ms"])
     return sums["forward"]
+
+
+def bf16_steps(a, b, slack: float = 0.0) -> float:
+    """The largest |a - b| over the bf16 rounding step at the larger of
+    the two magnitudes plus ``slack`` of b's largest |value|, elementwise
+    (1.0: one step)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    step = torch.ldexp(torch.ones_like(a), e - 8) + slack * b.abs().max()
+    return float(((a - b).abs() / step).max())
+
+
+def phase_vp_kernels(dev):
+    """K1 and K1ᵇ on each rank of a vp group of the view-sharded U-Net:
+    at LGM big's three site shapes (``VP_SHAPES``: B = 1 and bs2) for vp
+    2 and 4, each rank's S/vp queries against all S keys, on seeded
+    inputs. Each rank's K1 and K1ᵇ (f32 dK/dV partials) against their
+    plain versions; its o, lse and dq rows against the full-length call
+    (bit for bit expected: a row's arithmetic reads its own q row and
+    every key in the same order); the vp sum of the f32 partials, rounded
+    once, against the full call's dK and dV (within one bf16 step
+    expected). Rank 0's shapes timed (device time over K1_LAUNCHES calls)
+    beside SDPA's forward and backward at the same (Sq, Sk) and the bound.
+    A vp world needs a card a rank (NCCL takes one rank a device), so on
+    one card only its kernels run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lgm_tpu_torch.ops.mha import (_DKV_BLOCKS, _DQ_BLOCKS, _FWD_BLOCKS,
+                                       _sms, block_shape, mha_bwd,
+                                       mha_bwd_reference, mha_fwd,
+                                       mha_reference)
+
+    fwd_rows, bwd_rows = [], []
+    for (BH, S, D), vp in ((shape, vp) for shape in VP_SHAPES
+                           for vp in VP_DEGREES):
+        rng = np.random.default_rng(BH * S + D + vp)
+        q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
+                                       dtype=torch.float32, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = float(D) ** -0.5
+        n = S // vp
+        worst = dict(fwd=0.0, fwd_tol=0.0, lse=0.0, bwd=0.0, bwd_tol=0.0)
+        rows_equal = dict(o=True, lse=True, dq=True)
+        with torch.no_grad():
+            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+            dq, dk, dv = mha_bwd(q, k, v, o, do, scale, lse)
+            dk_sum = torch.zeros(BH, S, D, device=dev)
+            dv_sum = torch.zeros(BH, S, D, device=dev)
+            for r in range(vp):
+                rows = slice(r * n, (r + 1) * n)
+                q_r, do_r = q[:, rows].contiguous(), do[:, rows].contiguous()
+                o_r, lse_r, err, tol, lse_err, _ = check_k1(
+                    q_r, k, v, scale, f"vp{vp} rank {r} {BH}x{n}x{S}x{D}")
+                ours = mha_bwd(q_r, k, v, o_r, do_r, scale, lse_r,
+                               dkv_f32=True)
+                ref = mha_bwd_reference(q_r, k, v, o_r, do_r, scale, lse_r,
+                                        dkv_f32=True)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("dq", "dk32", "dv32"), ours, ref):
+                    b_err = float((a.float() - b.float()).abs().max())
+                    b_tol = K1_REL_TOL * float(b.float().abs().max())
+                    if not (a.dtype == b.dtype and b_err <= b_tol):
+                        raise AssertionError(
+                            f"K1ᵇ vp{vp} rank {r} {BH}x{n}x{S}x{D} {name}: "
+                            f"max abs err {b_err} > {b_tol}")
+                    if b_err >= worst["bwd"]:
+                        worst.update(bwd=b_err, bwd_tol=b_tol)
+                if err >= worst["fwd"]:
+                    worst.update(fwd=err, fwd_tol=tol)
+                worst["lse"] = max(worst["lse"], lse_err)
+                rows_equal["o"] &= torch.equal(o_r, o[:, rows])
+                rows_equal["lse"] &= torch.equal(lse_r, lse[:, rows])
+                rows_equal["dq"] &= torch.equal(ours[0], dq[:, rows])
+                dk_sum += ours[1]
+                dv_sum += ours[2]
+            dkv_steps = max(bf16_steps(dk_sum.to(torch.bfloat16), dk),
+                            bf16_steps(dv_sum.to(torch.bfloat16), dv))
+            dkv_held = max(
+                bf16_steps(dk_sum.to(torch.bfloat16), dk, DKV_SUM_SCALE_TOL),
+                bf16_steps(dv_sum.to(torch.bfloat16), dv, DKV_SUM_SCALE_TOL))
+            dkv_err = max(float((dk_sum.to(torch.bfloat16).float()
+                                 - dk.float()).abs().max()),
+                          float((dv_sum.to(torch.bfloat16).float()
+                                 - dv.float()).abs().max()))
+            if not (all(rows_equal.values()) and dkv_held <= 1.0):
+                raise AssertionError(
+                    f"vp{vp} {BH}x{S}x{D}: rows bit-equal {rows_equal}, "
+                    f"dK/dV sum {dkv_held} bf16 steps (with the f32 "
+                    f"regrouping's allowance) from the full call")
+            q_r, do_r = q[:, :n].contiguous(), do[:, :n].contiguous()
+            o_r, lse_r = mha_fwd(q_r, k, v, scale, return_lse=True)
+            ms = cuda_ms(lambda: mha_fwd(q_r, k, v, scale, return_lse=True),
+                         launches=K1_LAUNCHES)
+            plain_ms = cuda_ms(lambda: mha_reference(q_r, k, v, scale),
+                               reps=3)
+            b_ms = cuda_ms(lambda: mha_bwd(q_r, k, v, o_r, do_r, scale,
+                                           lse_r, dkv_f32=True),
+                           launches=K1_LAUNCHES)
+            b_plain_ms = cuda_ms(lambda: mha_bwd_reference(
+                q_r, k, v, o_r, do_r, scale, lse_r, dkv_f32=True), reps=3)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q_r[None], k[None], v[None], scale=scale),
+                launches=K1_LAUNCHES)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q_r, k, v))
+        out = F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
+                                             scale=scale)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do_r[None], retain_graph=True),
+            launches=K1_LAUNCHES)
+        del out, qs, ks, vs
+        sms = _sms(dev)
+        f_bound, f_by = k1_bound(BH, n, S, D)
+        bw_bound, bw_by = k1b_bound(BH, n, S, D, dkv_bytes=4)
+        common = dict(shape=[BH, S, D], vp=vp, Sq=n, Sk=S)
+        emit("vp_kernels", **common,
+             blocks=dict(fwd=block_shape(_FWD_BLOCKS[D], BH, n, sms),
+                         dq=block_shape(_DQ_BLOCKS[D], BH, n, sms),
+                         dkv=block_shape(_DKV_BLOCKS[D], BH, S, sms),
+                         dkv_query_tile=128 if n % 128 == 0 else 64),
+             k1_max_abs_err=worst["fwd"], k1_tol=worst["fwd_tol"],
+             lse_max_abs_err=worst["lse"], k1b_max_abs_err=worst["bwd"],
+             k1b_tol=worst["bwd_tol"], rows_bit_equal=rows_equal,
+             dkv_sum_max_abs_err=dkv_err, dkv_sum_bf16_steps=dkv_steps,
+             dkv_sum_steps_with_allowance=dkv_held,
+             dkv_sum_allowance=DKV_SUM_SCALE_TOL,
+             k1_ms=ms, k1_plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+             k1_over_library=ms / sdpa_ms, k1_bound_us=f_bound * 1e3,
+             k1_bound_by=f_by, k1b_ms=b_ms, k1b_plain_ms=b_plain_ms,
+             sdpa_bwd_ms=sdpa_bwd_ms, k1b_over_library=b_ms / sdpa_bwd_ms,
+             k1b_bound_us=bw_bound * 1e3, k1b_bound_by=bw_by)
+        fwd_rows.append(dict(**common, max_abs_err=worst["fwd"], ms=ms,
+                             plain_ms=plain_ms, library_ms=sdpa_ms,
+                             bound_ms=f_bound, bound_by=f_by,
+                             rows_bit_equal=rows_equal["o"]))
+        bwd_rows.append(dict(**common, max_abs_err=worst["bwd"], ms=b_ms,
+                             plain_ms=b_plain_ms, library_ms=sdpa_bwd_ms,
+                             bound_ms=bw_bound, bound_by=bw_by,
+                             dq_rows_bit_equal=rows_equal["dq"],
+                             dkv_sum_bf16_steps=dkv_steps))
+    return fwd_rows, bwd_rows
+
+
+def phase_orbit_devices(dev, gaussians):
+    """The orbit split over the host's cards (``render_orbit_video`` with
+    ``n_devices`` = ``torch.cuda.device_count()``) against one card, byte
+    for byte, and K2 once a frame either way. On a one-card host both are
+    the one-card path; the line says how many cards there were."""
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch import infer
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    opt = CONFIGS["big"]
+    count = torch.cuda.device_count()
+    videos, launches, secs = [], [], []
+    for n in (count, 1):
+        fs.composite_fwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        videos.append(infer.render_orbit_video(gaussians, opt,
+                                               device=str(dev), n_devices=n))
+        secs.append(time.perf_counter() - t0)
+        launches.append(fs.composite_fwd.launches)
+    if not (np.array_equal(videos[0], videos[1])
+            and launches == [180, 180]):
+        raise AssertionError(f"orbit over {count} cards: equal "
+                             f"{np.array_equal(videos[0], videos[1])}, K2 "
+                             f"launches {launches}")
+    emit("orbit_devices", cards=count,
+         note=("one card: the split is the one-card path" if count == 1
+               else f"frames split over {count} cards"),
+         n_devices=infer.orbit_split(180, 30, False, None, dev)[0],
+         frames_equal_one_card=True, k2_launches=launches[0],
+         orbit_s=secs[0], one_card_orbit_s=secs[1])
 
 
 def phase_k2(dev, ptxas):
@@ -676,7 +879,7 @@ def phase_k1_bwd(dev):
             out, (qs, ks, vs), do[None], retain_graph=True),
             launches=K1_LAUNCHES)
         del out, qs, ks, vs
-        b_ms, b_by = k1b_bound(BH, S, D)
+        b_ms, b_by = k1b_bound(BH, S, S, D)
         emit("k1_bwd", shape=[BH, S, D], sites=sites, max_abs_err=err,
              tol=tol, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              kernel_over_library=ms / lib_ms, bound_us=b_ms * 1e3,
@@ -1530,7 +1733,7 @@ def phase_k1_diffusion(dev):
                 q[None], k[None], v[None], scale=scale),
                 launches=K1_LAUNCHES)
         mt, nw = block_shape(_FWD_BLOCKS[D], BH, S, _sms(dev))
-        b_ms, b_by = k1_bound(BH, S, D)
+        b_ms, b_by = k1_bound(BH, S, S, D)
         # Derived, not counted: a 30-step image's launches (the paths
         # count theirs in phases diffusion_text and image_to_3d).
         per_image = DIFFUSION_SITES * N_DIFFUSION_STEPS
@@ -1592,8 +1795,8 @@ def phase_k1_bwd_diffusion(dev):
             out, (qs, ks, vs), do[None], retain_graph=True),
             launches=K1_LAUNCHES)
         del out, qs, ks, vs
-        f_bound, f_by = k1_bound(BH, S, D)
-        b_bound, b_by = k1b_bound(BH, S, D)
+        f_bound, f_by = k1_bound(BH, S, S, D)
+        b_bound, b_by = k1b_bound(BH, S, S, D)
         emit("k1_bwd_diffusion", model=model, shape=[BH, S, D],
              sites_per_step=DIFFUSION_SITES, k1_max_abs_err=err, k1_tol=tol,
              k1_lse_max_abs_err=lse_err, k1_lse_tol=lse_tol, k1_ms=ms,
@@ -3259,6 +3462,7 @@ def main() -> int:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev, ptxas)
     k1b = phase_k1_bwd(dev)
+    vp_fwd, vp_bwd = phase_vp_kernels(dev)
     k2b = phase_k2_bwd(dev)
     k3, k3_args, k3_out, k3_work = phase_k3(dev, ptxas)
     k3b = phase_k3_bwd(dev, k3_args, k3_out, k3_work)
@@ -3267,6 +3471,7 @@ def main() -> int:
     k1_train_shapes, k1b_train_shapes = phase_k1_bwd_diffusion(dev)
     infer_launches, model, mv, gaussians = phase_main(dev)
     phase_profile(dev, model, mv, gaussians)
+    phase_orbit_devices(dev, gaussians)
     text_launches = phase_diffusion_text(dev)
     image_launches = phase_image_to_3d(dev, model)
     del model
@@ -3313,7 +3518,7 @@ def main() -> int:
              app_launches_per_request=app_launches["mha_fwd"],
              infer_jpeg_launches=infer_jpeg_launches["mha_fwd"],
              infer_progressive_jpeg_launches=progressive_launches["mha_fwd"],
-             **{k: k1[k] for k in keys}),
+             vp_shapes=vp_fwd, **{k: k1[k] for k in keys}),
         dict(name="composite_fwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_fwd.cu",
              replaces="lgm_tpu/ops/gsplat/flatsort.py:462",
@@ -3331,7 +3536,7 @@ def main() -> int:
         dict(name="mha_bwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",
              replaces="lgm_tpu/ops/mha.py:61", launches=launches["mha_bwd"],
-             diffusion_shapes_bwd=k1b_train_shapes,
+             diffusion_shapes_bwd=k1b_train_shapes, vp_shapes=vp_bwd,
              **{k: k1b[k] for k in keys}),
         dict(name="composite_bwd", route="cuda",
              source="lgm_tpu_torch/ops/gsplat/csrc/composite_bwd.cu",

@@ -81,7 +81,8 @@ class Options:
     # --- parallelism -----------------------------------------------------
     # View-parallel axis: the ranks form a (dp, vp) grid with
     # dp = world size / vp (parallel/dist.py). Supervision views shard over
-    # vp; each vp rank runs the U-Net on all input views of its scenes.
+    # vp, and so do the input views where vp divides them: each vp rank
+    # then runs the U-Net on its own input views (else on all of them).
     vp: int = 1
     # ZeRO-1: shard large optimizer-state leaves (Adam mu/nu) over dp.
     zero1: bool = False

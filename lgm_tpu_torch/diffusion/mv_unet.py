@@ -90,7 +90,7 @@ def kernel_route(dtype: torch.dtype, B: int, heads: int, Nq: int, Nk: int,
     logits_bytes = B * heads * Nq * Nk * 2
     return (Nq == Nk and Nq % 512 == 0
             and (Nq >= 2048 or logits_bytes > 2e8) and hd <= 64
-            and kernel_takes(dtype, Nq, hd, float(hd) ** -0.5))
+            and kernel_takes(dtype, Nq, Nk, hd, float(hd) ** -0.5))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

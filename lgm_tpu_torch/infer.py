@@ -31,8 +31,10 @@ Run: python -m lgm_tpu_torch.infer big --mv-images a.png b.png c.png d.png
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -129,34 +131,75 @@ def orbit_video_cameras(opt: Options, n_frames: int, elevation: float = 0.0):
     return camera.build_camera_inputs(poses, opt.fovy, opt.znear, opt.zfar)
 
 
+def orbit_split(n_frames: int, chunk: int, fancy: bool,
+                n_devices: Optional[int], dev: torch.device):
+    """(devices, chunk) of an orbit render, by ``lgm_tpu/infer.py``'s
+    rules: by default every CUDA card (``torch.cuda.device_count()``), 1
+    on the CPU; ``fancy`` (one frame at a time) forces 1; at most one
+    device a frame; ``chunk`` rounded down to a multiple of the devices
+    (at least one frame each)."""
+    if fancy:
+        n_devices = 1
+    elif n_devices is None:
+        n_devices = (max(1, torch.cuda.device_count()) if dev.type == "cuda"
+                     else 1)
+    if n_devices > 1:
+        n_devices = min(n_devices, n_frames)
+        if chunk % n_devices:
+            chunk = max(n_devices, chunk - chunk % n_devices)
+    return n_devices, chunk
+
+
 def render_orbit_video(gaussians, opt: Options, n_frames: int = 180,
                        chunk: int = 30, fancy: bool = False,
-                       device: str = "cuda") -> np.ndarray:
+                       device: str = "cuda",
+                       n_devices: Optional[int] = None) -> np.ndarray:
     """Render a 360° orbit of [N, 14] Gaussians: uint8 [n_frames, S, S, 3].
     Frames are rendered ``chunk`` at a time and moved to the host as
     uint8; ``fancy`` ramps the scale modifier from 0 to 1 over the first
-    quarter (ref: infer.py:113-130). ``process`` writes the result."""
-    dev = resolve_device(device)
-    tan = float(np.tan(0.5 * np.deg2rad(opt.fovy)))
-    cam_view = torch.as_tensor(orbit_video_cameras(opt, n_frames)["cam_view"],
-                               device=dev)
-    g = torch.tensor(np.asarray(gaussians), dtype=torch.float32,
-                     device=dev)[None]
+    quarter (ref: infer.py:113-130). ``process`` writes the result.
 
-    def frames(views, sm):
-        img = render_views(g, views[None], opt.output_size, tan,
-                           scale_modifier=sm, dup=32)["image"][0]
-        # x255 then truncation toward zero, as the JAX path's astype.
-        return (img * 255.0).to(torch.uint8).cpu().numpy()
+    Several cards (``orbit_split``: all of them by default on CUDA): each
+    chunk's frames are split evenly over ``cuda:0 … cuda:n−1`` in order,
+    each card rendering its share from its own copy of the Gaussians, one
+    host thread a card; the frames come back in order. On the CPU,
+    ``n_devices`` > 1 splits the chunk the same way on the one device."""
+    dev = resolve_device(device)
+    n, chunk = orbit_split(n_frames, chunk, fancy, n_devices, dev)
+    devices = ([torch.device("cuda", i) for i in range(n)]
+               if dev.type == "cuda" and n > 1 else [dev] * n)
+    tan = float(np.tan(0.5 * np.deg2rad(opt.fovy)))
+    cams = torch.as_tensor(orbit_video_cameras(opt, n_frames)["cam_view"])
+    g = torch.tensor(np.asarray(gaussians), dtype=torch.float32)[None]
+    copies = {d: (g.to(d), cams.to(d)) for d in set(devices)}
+
+    def frames(d, lo, hi, sm):
+        g_d, cams_d = copies[d]
+        on_card = (torch.cuda.device(d) if d.type == "cuda"
+                   else contextlib.nullcontext())
+        with torch.inference_mode(), on_card:
+            img = render_views(g_d, cams_d[lo:hi][None], opt.output_size,
+                               tan, scale_modifier=sm, dup=32)["image"][0]
+            # x255 then truncation toward zero, as the JAX path's astype.
+            return (img * 255.0).to(torch.uint8).cpu().numpy()
 
     outs = []
-    with torch.inference_mode():
+    pool = ThreadPoolExecutor(n) if n > 1 else None
+    try:
         for s in range(0, n_frames, chunk):
+            e = min(s + chunk, n_frames)
             if fancy:
-                outs += [frames(cam_view[i:i + 1], min(1.0, 4.0 * i / n_frames))
-                         for i in range(s, min(s + chunk, n_frames))]
+                outs += [frames(dev, i, i + 1, min(1.0, 4.0 * i / n_frames))
+                         for i in range(s, e)]
             else:
-                outs.append(frames(cam_view[s:s + chunk], 1.0))
+                per = chunk // n
+                parts = [(d, s + i * per, min(s + (i + 1) * per, e))
+                         for i, d in enumerate(devices) if s + i * per < e]
+                outs += (pool.map if pool else map)(
+                    lambda a: frames(*a, 1.0), parts)
+    finally:
+        if pool is not None:
+            pool.shutdown()
     return np.concatenate(outs)
 
 

@@ -30,6 +30,7 @@ from lgm_tpu_torch.models.init import init_like_flax_
 from lgm_tpu_torch.models.lpips import LPIPS
 from lgm_tpu_torch.models.unet import UNet
 from lgm_tpu_torch.ops.gsplat.api import render_views
+from lgm_tpu_torch.parallel import dist
 
 
 def activate_gaussians(x: torch.Tensor) -> torch.Tensor:
@@ -56,7 +57,13 @@ class LGM(nn.Module):
     Given a ``generator``, every conv and dense (the U-Net's, then the
     final 1x1) starts from flax's initialisers, as ``lgm_tpu``'s LGM does
     (``models/init.py``); without one, from PyTorch's, for weights that
-    are loaded next."""
+    are loaded next.
+
+    ``views_group`` (None: one process) is the vp group of a view-sharded
+    U-Net (``parallel/dist.py``): ``images`` then holds this rank's V/vp
+    views of each scene, and the Gaussians of the group's views are
+    gathered in view order before activation, as lgm_tpu's
+    ``gather_gaussians``, so every rank returns all of them."""
 
     def __init__(self, opt: Options, dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
@@ -74,18 +81,23 @@ class LGM(nn.Module):
         )
         # Final 1x1 conv, in f32 (ref: core/models.py:34).
         self.conv = nn.Conv2d(14, 14, 1)
+        self.views_group = None
         if generator is not None:
             init_like_flax_(self, generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, V, H, W, C = images.shape
         x = images.reshape(B * V, H, W, C).permute(0, 3, 1, 2)
-        x = self.unet(x, V)
+        x = self.unet(x, V, self.views_group)
         x = F.conv2d(x.float(), self.conv.weight.float(),
                      self.conv.bias.float())
         s = self.opt.splat_size
         # [B*V, 14, s, s] -> [B, V*s*s, 14] in (view, row, col) order.
         x = x.permute(0, 2, 3, 1).reshape(B, V * s * s, 14)
+        if self.views_group is not None:
+            # Before the activation: its quaternion normalisation runs
+            # across all of a scene's Gaussians (trap C1).
+            x = dist.gather_views(x, 1, self.views_group)
         return activate_gaussians(x)
 
 

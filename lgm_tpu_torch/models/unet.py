@@ -24,6 +24,13 @@ card) where K1 takes the input, dense plain PyTorch elsewhere (f32
 compute, and the ``nano`` preset's head dim of 6). ``remat=True`` recomputes each down/mid/up block in the backward
 (``torch.utils.checkpoint``), the counterpart of ``unet_remat``
 (``lgm_tpu/models/unet.py``): it changes memory, never the numbers.
+
+View sharding (lgm_tpu's ``constrain_views``): given a vp ``group``, the
+U-Net runs on the rank's own V/vp views of each scene; every layer but
+the cross-view attention works view by view, and ``MVAttention`` gathers
+the keys and values of all the group's views (rank order, the
+one-process token order) for its own queries. The numbers are the
+one-process numbers; each rank holds only its views' activations.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from lgm_tpu_torch.ops.mha import kernel_takes, mha
+from lgm_tpu_torch.ops.mha import kernel_takes, mha, mha_views
+from lgm_tpu_torch.parallel import dist
 
 
 def use_full_float32() -> None:
@@ -87,16 +95,28 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> torch.Tensor:
+              scale: float, group=None) -> torch.Tensor:
     """Self-attention over [BH, S, D]: ``mha`` (K1, and K1ᵇ in the
     backward) where the kernels take this dtype and shape (``kernel_takes``:
     bf16, D in (32, 64), S % 128 == 0, scale > 0), else
     ``dense_attention``, as ``lgm_tpu/models/unet.py::_attention`` keeps
     its kernel behind a gate and runs ``jax.nn.dot_product_attention``
     elsewhere. The choice reads dtype and shape only, never the device, so
-    the CPU takes the card's route."""
-    if kernel_takes(q.dtype, q.shape[-2], q.shape[-1], scale):
-        return mha(q, k, v, scale)
+    the CPU takes the card's route.
+
+    With a vp ``group``, q, k and v hold this rank's S/vp tokens and the
+    queries attend to the keys and values of the whole group: ``mha_views``
+    (K1 and K1ᵇ at Sq = S/vp, Sk = S) where the kernels take that, else
+    ``dense_attention`` over k and v joined by ``dist.gather_views``."""
+    Sq, D = q.shape[-2:]
+    Sk = Sq * dist.group_size(group)
+    if kernel_takes(q.dtype, Sq, Sk, D, scale):
+        if group is None:
+            return mha(q, k, v, scale)
+        return mha_views(q, k, v, scale, group)
+    if group is not None:
+        kv = dist.gather_views(torch.stack((k, v)), 2, group)
+        k, v = kv[0], kv[1]
     return dense_attention(q, k, v, scale)
 
 
@@ -113,7 +133,8 @@ class MVAttention(nn.Module):
     """Cross-view self-attention: [B*V, C, H, W] -> attention over all
     V*H*W tokens of a scene (ref: core/unet.py:11-49), through
     ``attention`` (kernels K1 and K1ᵇ on the card where they take the
-    input)."""
+    input). With a vp ``group``, x holds this rank's V views of each scene
+    and the tokens of the group's views are the scene's."""
 
     def __init__(self, channels: int, num_heads: int = 16,
                  skip_scale: float = 1.0, dtype=torch.bfloat16):
@@ -124,7 +145,8 @@ class MVAttention(nn.Module):
         self.norm = nn.GroupNorm(32, channels, eps=1e-5)
         self.attn = _Attention(channels)
 
-    def forward(self, x: torch.Tensor, num_views: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, num_views: int,
+                group=None) -> torch.Tensor:
         BV, C, H, W = x.shape
         B, S, nh = BV // num_views, num_views * H * W, self.num_heads
         hd = C // nh
@@ -138,7 +160,7 @@ class MVAttention(nn.Module):
                 B * nh, S, hd).contiguous()
 
         q, k, v = (heads(t) for t in qkv.chunk(3, dim=-1))
-        o = attention(q, k, v, hd ** -0.5)
+        o = attention(q, k, v, hd ** -0.5, group)
         o = o.reshape(B, nh, S, hd).transpose(1, 2).reshape(B, S, C)
         o = _linear(self.attn.proj, o, self.dtype)
         o = o.reshape(BV, H, W, C).permute(0, 3, 1, 2)
@@ -189,12 +211,12 @@ class DownBlock(nn.Module):
         self.downsample = (nn.Conv2d(out_channels, out_channels, 3, stride=2,
                                      padding=1) if downsample else None)
 
-    def forward(self, x, num_views: int):
+    def forward(self, x, num_views: int, group=None):
         skips = []
         for j, net in enumerate(self.nets):
             x = net(x)
             if self.attns is not None:
-                x = self.attns[j](x, num_views)
+                x = self.attns[j](x, num_views, group)
             skips.append(x)
         if self.downsample is not None:
             x = _conv(self.downsample, x, self.dtype)
@@ -217,11 +239,11 @@ class MidBlock(nn.Module):
             MVAttention(channels, 16, skip_scale, dtype)
             for _ in range(num_layers)) if attention else None)
 
-    def forward(self, x, num_views: int):
+    def forward(self, x, num_views: int, group=None):
         x = self.nets[0](x)
         for j, net in enumerate(self.nets[1:]):
             if self.attns is not None:
-                x = self.attns[j](x, num_views)
+                x = self.attns[j](x, num_views, group)
             x = net(x)
         return x
 
@@ -247,12 +269,13 @@ class UpBlock(nn.Module):
         self.upsample = (nn.Conv2d(out_channels, out_channels, 3, padding=1)
                          if upsample else None)
 
-    def forward(self, x, skips: List[torch.Tensor], num_views: int):
+    def forward(self, x, skips: List[torch.Tensor], num_views: int,
+                group=None):
         skips = list(skips)
         for j, net in enumerate(self.nets):
             x = net(torch.cat([x, skips.pop()], dim=1))  # deepest first
             if self.attns is not None:
-                x = self.attns[j](x, num_views)
+                x = self.attns[j](x, num_views, group)
         if self.upsample is not None:
             x = F.interpolate(x, scale_factor=2, mode="nearest")
             x = _conv(self.upsample, x, self.dtype)
@@ -306,16 +329,19 @@ class UNet(nn.Module):
             return checkpoint(blk, *args, use_reentrant=False)
         return blk(*args)
 
-    def forward(self, x: torch.Tensor, num_views: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, num_views: int,
+                group=None) -> torch.Tensor:
+        """x [B*V, Cin, H, W] -> [B*V, Cout, H, W]; with a vp ``group``,
+        V is this rank's views of each scene (see the module note)."""
         x = _conv(self.conv_in, x, self.dtype)
         xss = [x]
         for blk in self.down_blocks:
-            x, skips = self._block(blk, x, num_views)
+            x, skips = self._block(blk, x, num_views, group)
             xss.extend(skips)
-        x = self._block(self.mid_block, x, num_views)
+        x = self._block(self.mid_block, x, num_views, group)
         for blk in self.up_blocks:
             n = len(blk.nets)
             skips, xss = xss[-n:], xss[:-n]
-            x = self._block(blk, x, skips, num_views)
+            x = self._block(blk, x, skips, num_views, group)
         x = F.silu(_gn(self.norm_out, x).to(self.dtype))
         return _conv(self.conv_out, x, torch.float32)

@@ -41,6 +41,19 @@
 // Two exps per logit and seven products in all; nothing is transposed in
 // shared memory. (MT, NW) of each kernel is chosen by the caller so that
 // the grid fills the card at small S.
+//
+// Queries and keys may differ in number (Sq against Sk), as under the
+// view-sharded U-Net, where each vp rank holds the queries of its own
+// views and the keys and values of all of them. (a) runs over Sq rows and
+// streams Sk keys; (b) runs over Sk keys and streams Sq queries, 128 a
+// tile, or 64 where Sq is not a multiple of 128 (Sq = 64 at the big
+// preset's 8^2 sites at vp 4): a template parameter, so the 128-query
+// kernel is the one built before. The tile size changes no sum: (b)
+// accumulates over 16-query chunks in the same order either way. A rank's
+// dK and dV are partial sums over its own queries, which the vp ranks then
+// sum; rounding each partial to bf16 would round vp times where one
+// process rounds once, so (b) writes them in f32 when the caller asks
+// (dk32, dv32) and the caller rounds the sum.
 
 #include "mha_common.cuh"
 
@@ -48,17 +61,19 @@ namespace {
 
 using namespace mha;
 
-constexpr int kBK = 128;  // keys (a) / queries (b) per tile
+constexpr int kBK = 128;  // keys (a) / queries (b, or 64: BQ) per tile
 constexpr int kStages = 2;
 
-template <int D, int MT, int NW>
+template <int D, int MT, int NW, int BQ = kBK>
 struct BwdConfig {
   static constexpr int kThreads = NW * 32;
   static constexpr int kRows = 16 * MT * NW;  // rows (a) / keys (b) a block
   static constexpr int kTile = kBK * Tile<D>::kStride;  // bf16 elements
+  static constexpr int kQTile = BQ * Tile<D>::kStride;  // (b)'s Q, dO tiles
   // (a): K and V rings; (b): Q and dO rings, then L and D rings (f32).
   static constexpr int kSmemDq = 2 * kStages * kTile * 2;
-  static constexpr int kSmemDkv = kSmemDq + 2 * kStages * kBK * 4;
+  static constexpr int kSmemDkv =
+      2 * kStages * kQTile * 2 + 2 * kStages * BQ * 4;
 };
 
 // (a) D and dq, 16 * MT * NW query rows a block.
@@ -67,8 +82,8 @@ __global__ void __launch_bounds__(NW * 32)
 mha_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ o,
                   const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  bf16* __restrict__ dq, float* __restrict__ drow, int S,
-                  float scale) {
+                  bf16* __restrict__ dq, float* __restrict__ drow, int Sq,
+                  int Sk, float scale) {
   using C = BwdConfig<D, MT, NW>;
   constexpr int RS = Tile<D>::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -79,15 +94,15 @@ mha_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+  const size_t base = (size_t)blockIdx.y * Sq * D;  // q, o, dO, dq
+  const bf16* kb = k + (size_t)blockIdx.y * Sk * D;
+  const bf16* vb = v + (size_t)blockIdx.y * Sk * D;
   const int r0 = blockIdx.x * C::kRows + warp * 16 * MT;
   const int off_nt = ldsm_row(lane) * RS + ldsm_col(lane);
   const int off_t = ldsm_t_row(lane) * RS + ldsm_t_col(lane);
   const float c = scale * kLog2e;
 
-  const int nT = S / kBK;
+  const int nT = Sk / kBK;
   auto issue = [&](int i) {
     if (i < nT) {
       const int st = i % kStages;
@@ -108,7 +123,7 @@ mha_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_a<D>(df[mt], dout + base, r, t);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const size_t row = (size_t)blockIdx.y * S + r + 8 * h;
+      const size_t row = (size_t)blockIdx.y * Sq + r + 8 * h;
       nl2[mt][h] = -lse[row] * kLog2e;
       // D = rowsum(dO o O) in f32 from the bf16 values; lane t takes the
       // columns 8t.. (and 32 + 8t.. at D = 64).
@@ -170,44 +185,46 @@ mha_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store_rows<D>(dq + base, r0 + 16 * mt + g, t, acc[mt], scale, scale);
 }
 
-// (b) dK and dV, 16 * MT * NW keys a block.
-template <int D, int MT, int NW>
+// (b) dK and dV, 16 * MT * NW keys a block, BQ queries a staged tile;
+// into bf16 dk, dv, or f32 dk32, dv32 where those are not null.
+template <int D, int MT, int NW, int BQ>
 __global__ void __launch_bounds__(NW * 32)
 mha_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ drow, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int S, float scale) {
-  using C = BwdConfig<D, MT, NW>;
+                   bf16* __restrict__ dv, float* __restrict__ dk32,
+                   float* __restrict__ dv32, int Sq, int Sk, float scale) {
+  using C = BwdConfig<D, MT, NW, BQ>;
   constexpr int RS = Tile<D>::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + kStages * C::kTile;
-  float* ls = reinterpret_cast<float*>(dos + kStages * C::kTile);
-  float* drs = ls + kStages * kBK;
+  bf16* dos = qs + kStages * C::kQTile;
+  float* ls = reinterpret_cast<float*>(dos + kStages * C::kQTile);
+  float* drs = ls + kStages * BQ;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const bf16* qb = q + base;
-  const bf16* db = dout + base;
-  const float* lb = lse + (size_t)blockIdx.y * S;
-  const float* drb = drow + (size_t)blockIdx.y * S;
+  const size_t base = (size_t)blockIdx.y * Sk * D;  // k, v, dk, dv
+  const bf16* qb = q + (size_t)blockIdx.y * Sq * D;
+  const bf16* db = dout + (size_t)blockIdx.y * Sq * D;
+  const float* lb = lse + (size_t)blockIdx.y * Sq;
+  const float* drb = drow + (size_t)blockIdx.y * Sq;
   const int r0 = blockIdx.x * C::kRows + warp * 16 * MT;  // keys
   const int off_nt = ldsm_row(lane) * RS + ldsm_col(lane);
   const int off_t = ldsm_t_row(lane) * RS + ldsm_t_col(lane);
   const float c = scale * kLog2e;
 
-  const int nT = S / kBK;
+  const int nT = Sq / BQ;
   auto issue = [&](int i) {
     if (i < nT) {
       const int st = i % kStages;
-      load_tile<D, kBK, C::kThreads>(qs + st * C::kTile, qb, i * kBK);
-      load_tile<D, kBK, C::kThreads>(dos + st * C::kTile, db, i * kBK);
-      load_row_stat<kBK, C::kThreads>(ls + st * kBK, lb, i * kBK);
-      load_row_stat<kBK, C::kThreads>(drs + st * kBK, drb, i * kBK);
+      load_tile<D, BQ, C::kThreads>(qs + st * C::kQTile, qb, i * BQ);
+      load_tile<D, BQ, C::kThreads>(dos + st * C::kQTile, db, i * BQ);
+      load_row_stat<BQ, C::kThreads>(ls + st * BQ, lb, i * BQ);
+      load_row_stat<BQ, C::kThreads>(drs + st * BQ, drb, i * BQ);
     }
     cp_async_commit();
   };
@@ -232,12 +249,12 @@ mha_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float s[MT][2][4], dp[MT][2][4];
   for (int i = 0; i < nT; ++i) {
     const int st = ring_advance<kStages>(i, issue);
-    const bf16* qt = qs + st * C::kTile;
-    const bf16* dt = dos + st * C::kTile;
-    const float* lt = ls + st * kBK;
-    const float* drt = drs + st * kBK;
+    const bf16* qt = qs + st * C::kQTile;
+    const bf16* dt = dos + st * C::kQTile;
+    const float* lt = ls + st * BQ;
+    const float* drt = drs + st * BQ;
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
+    for (int j = 0; j < BQ / 16; ++j) {
       product_nt<D, MT>(s, kf, qt + 16 * j * RS, off_nt);   // S^T
       product_nt<D, MT>(dp, vf, dt + 16 * j * RS, off_nt);  // dP^T
       // Statistics of this thread's query columns 16 j + 8 n + 2 t, + 1.
@@ -272,8 +289,13 @@ mha_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const int r = r0 + 16 * mt + g;
-    store_rows<D>(dk + base, r, t, dk_acc[mt], scale, scale);
-    store_rows<D>(dv + base, r, t, dv_acc[mt], 1.f, 1.f);
+    if (dk32 != nullptr) {
+      store_rows_f32<D>(dk32 + base, r, t, dk_acc[mt], scale, scale);
+      store_rows_f32<D>(dv32 + base, r, t, dv_acc[mt], 1.f, 1.f);
+    } else {
+      store_rows<D>(dk + base, r, t, dk_acc[mt], scale, scale);
+      store_rows<D>(dv + base, r, t, dv_acc[mt], 1.f, 1.f);
+    }
   }
 }
 
@@ -281,8 +303,9 @@ struct Args {
   const bf16 *q, *k, *v, *o, *dout;
   const float* lse;
   bf16 *dq, *dk, *dv;
+  float *dk32, *dv32;
   float* drow;
-  int BH, S;
+  int BH, Sq, Sk;
   float scale;
   cudaStream_t st;
   int device;
@@ -291,31 +314,41 @@ struct Args {
 template <int D, int MT, int NW>
 int launch_dq(const Args& a) {
   using C = BwdConfig<D, MT, NW>;
-  if (a.S % C::kRows != 0) return (int)cudaErrorInvalidValue;
+  if (a.Sq % C::kRows != 0) return (int)cudaErrorInvalidValue;
   static bool smem_set[64];
   const cudaError_t err =
       allow_smem((const void*)mha_bwd_dq_kernel<D, MT, NW>, C::kSmemDq,
                  a.device, smem_set);
   if (err != cudaSuccess) return (int)err;
   mha_bwd_dq_kernel<D, MT, NW>
-      <<<dim3(a.S / C::kRows, a.BH), C::kThreads, C::kSmemDq, a.st>>>(
-          a.q, a.k, a.v, a.o, a.dout, a.lse, a.dq, a.drow, a.S, a.scale);
+      <<<dim3(a.Sq / C::kRows, a.BH), C::kThreads, C::kSmemDq, a.st>>>(
+          a.q, a.k, a.v, a.o, a.dout, a.lse, a.dq, a.drow, a.Sq, a.Sk,
+          a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int D, int MT, int NW>
-int launch_dkv(const Args& a) {
-  using C = BwdConfig<D, MT, NW>;
-  if (a.S % C::kRows != 0) return (int)cudaErrorInvalidValue;
+template <int D, int MT, int NW, int BQ>
+int launch_dkv_bq(const Args& a) {
+  using C = BwdConfig<D, MT, NW, BQ>;
+  if (a.Sk % C::kRows != 0 || a.Sq % BQ != 0)
+    return (int)cudaErrorInvalidValue;
   static bool smem_set[64];
   const cudaError_t err =
-      allow_smem((const void*)mha_bwd_dkv_kernel<D, MT, NW>, C::kSmemDkv,
+      allow_smem((const void*)mha_bwd_dkv_kernel<D, MT, NW, BQ>, C::kSmemDkv,
                  a.device, smem_set);
   if (err != cudaSuccess) return (int)err;
-  mha_bwd_dkv_kernel<D, MT, NW>
-      <<<dim3(a.S / C::kRows, a.BH), C::kThreads, C::kSmemDkv, a.st>>>(
-          a.q, a.k, a.v, a.dout, a.lse, a.drow, a.dk, a.dv, a.S, a.scale);
+  mha_bwd_dkv_kernel<D, MT, NW, BQ>
+      <<<dim3(a.Sk / C::kRows, a.BH), C::kThreads, C::kSmemDkv, a.st>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.drow, a.dk, a.dv, a.dk32, a.dv32,
+          a.Sq, a.Sk, a.scale);
   return (int)cudaGetLastError();
+}
+
+// 128 queries a tile where Sq allows, else 64.
+template <int D, int MT, int NW>
+int launch_dkv(const Args& a) {
+  return a.Sq % kBK == 0 ? launch_dkv_bq<D, MT, NW, kBK>(a)
+                         : launch_dkv_bq<D, MT, NW, kBK / 2>(a);
 }
 
 template <int D>
@@ -345,27 +378,36 @@ int launch_d(const Args& a, int mt_q, int nw_q, int mt_kv, int nw_kv) {
 
 extern "C" {
 
-// q, k, v, o, dout, dq, dk, dv: [BH, S, D] contiguous bf16, 16-byte
-// aligned; lse (K1's statistic): [BH, S] f32; drow: [BH, S] f32 scratch;
-// all on device ``device``. D in {32, 64}; S a multiple of 128 and of
-// each kernel's block rows 16 * mt * nw; scale > 0; (mt_q, nw_q) for the
-// dq kernel and (mt_kv, nw_kv) for the dK/dV kernel each in {(2, 8),
-// (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)}. Launches both kernels on
-// ``stream``; returns cudaGetLastError().
+// q, o, dout, dq: [BH, Sq, D] and k, v: [BH, Sk, D] contiguous bf16,
+// 16-byte aligned; dk, dv: [BH, Sk, D], bf16, or f32 where dkv_f32 is not
+// 0; lse (K1's statistic): [BH, Sq] f32; drow: [BH, Sq] f32 scratch; all
+// on device ``device``. D in {32, 64}; Sk a multiple of 128 and of the
+// dK/dV kernel's block rows 16 * mt_kv * nw_kv; Sq a multiple of 64 and of
+// the dq kernel's block rows 16 * mt_q * nw_q; scale > 0; (mt_q, nw_q) and
+// (mt_kv, nw_kv) each in {(2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)}.
+// Launches both kernels on ``stream``; returns cudaGetLastError().
 int mha_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const void* lse, void* dq, void* dk,
-                 void* dv, void* drow, int BH, int S, int D, float scale,
-                 int mt_q, int nw_q, int mt_kv, int nw_kv, void* stream,
-                 int device) {
+                 void* dv, void* drow, int BH, int Sq, int Sk, int D,
+                 float scale, int mt_q, int nw_q, int mt_kv, int nw_kv,
+                 int dkv_f32, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (S % kBK != 0 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
-  const Args a{static_cast<const bf16*>(q),    static_cast<const bf16*>(k),
-               static_cast<const bf16*>(v),    static_cast<const bf16*>(o),
-               static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-               static_cast<bf16*>(dq),         static_cast<bf16*>(dk),
-               static_cast<bf16*>(dv),         static_cast<float*>(drow),
-               BH, S, scale, static_cast<cudaStream_t>(stream), device};
+  if (Sk % kBK != 0 || Sq <= 0 || Sq % (kBK / 2) != 0 || !(scale > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const bf16*>(q),
+               static_cast<const bf16*>(k),
+               static_cast<const bf16*>(v),
+               static_cast<const bf16*>(o),
+               static_cast<const bf16*>(dout),
+               static_cast<const float*>(lse),
+               static_cast<bf16*>(dq),
+               dkv_f32 ? nullptr : static_cast<bf16*>(dk),
+               dkv_f32 ? nullptr : static_cast<bf16*>(dv),
+               dkv_f32 ? static_cast<float*>(dk) : nullptr,
+               dkv_f32 ? static_cast<float*>(dv) : nullptr,
+               static_cast<float*>(drow),
+               BH, Sq, Sk, scale, static_cast<cudaStream_t>(stream), device};
   if (D == 32) return launch_d<32>(a, mt_q, nw_q, mt_kv, nw_kv);
   if (D == 64) return launch_d<64>(a, mt_q, nw_q, mt_kv, nw_kv);
   return (int)cudaErrorInvalidValue;

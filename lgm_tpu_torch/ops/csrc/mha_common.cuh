@@ -236,6 +236,23 @@ __device__ __forceinline__ void store_rows(bf16* base, int r, int t,
   }
 }
 
+// As store_rows, in f32 (no rounding).
+template <int D>
+__device__ __forceinline__ void store_rows_f32(float* base, int r, int t,
+                                               const float (&acc)[D / 8][4],
+                                               float mul0, float mul1) {
+  float* ra = base + (size_t)r * D;
+  float* rb = ra + 8 * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + 2 * t;
+    *reinterpret_cast<float2*>(ra + c) =
+        make_float2(acc[n][0] * mul0, acc[n][1] * mul0);
+    *reinterpret_cast<float2*>(rb + c) =
+        make_float2(acc[n][2] * mul1, acc[n][3] * mul1);
+  }
+}
+
 // One stage of a cp.async ring of NST stages: before the block computes on
 // item i, wait for it and (one barrier) for every thread to have finished
 // item i - 1, whose stage then takes item i + NST - 1. ``issue(j)`` copies

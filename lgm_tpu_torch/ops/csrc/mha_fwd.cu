@@ -12,6 +12,12 @@
 // (m the row max, l that sum), which K1ᵇ reads instead of recomputing the
 // softmax statistics; the TPU kernel stored none (see ops/mha.py).
 //
+// Queries and keys may differ in number: Sq query rows attend to Sk keys.
+// Under the view-sharded U-Net each vp rank holds the queries of its own
+// views (Sq = S / vp) and the keys and values of all of them (Sk = S);
+// every row's arithmetic reads only its own q row and all Sk keys in tile
+// order, so a rank's rows are bit for bit the rows of the Sq = Sk call.
+//
 // The TPU called its kernel only where S >= 2048 (lgm_tpu/models/unet.py:
 // 61-62): that gate is a VMEM/HBM decision of that chip. The port calls
 // this kernel at every MVAttention site: S = 4096/D = 32, S = 1024/D = 64
@@ -62,7 +68,7 @@ template <int D, int MT, int NW>
 __global__ void __launch_bounds__(NW * 32)
 mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int S, float scale) {
+               float* __restrict__ lse, int Sq, int Sk, float scale) {
   using C = FwdConfig<D, MT, NW>;
   constexpr int RS = Tile<D>::kStride;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -73,9 +79,9 @@ mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const bf16* kb = k + base;
-  const bf16* vb = v + base;
+  const size_t base = (size_t)blockIdx.y * Sq * D;  // q, o
+  const bf16* kb = k + (size_t)blockIdx.y * Sk * D;
+  const bf16* vb = v + (size_t)blockIdx.y * Sk * D;
   // m-tile mt holds rows r0 + 16 mt + g and + 8.
   const int r0 = blockIdx.x * C::kRows + warp * 16 * MT;
   const int off_nt = ldsm_row(lane) * RS + ldsm_col(lane);
@@ -88,7 +94,7 @@ mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_a<D>(qf[mt], q + base, r0 + 16 * mt + g, t);
 
   // Items 0..nT-1: K tiles of pass 1; nT..2nT-1: K and V tiles of pass 2.
-  const int nT = S / kBK;
+  const int nT = Sk / kBK;
   auto issue = [&](int i) {
     if (i < 2 * nT) {
       const int st = i % kStages, key0 = (i % nT) * kBK;
@@ -168,35 +174,40 @@ mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = r0 + 16 * mt + g;
     store_rows<D>(o + base, r, t, acc[mt], 1.f / l0, 1.f / l1);
     if (lse != nullptr && t == 0) {
-      float* lr = lse + (size_t)blockIdx.y * S + r;
-      lr[0] = (m2[mt][0] + log2f(l0)) * kLn2;
-      lr[8] = (m2[mt][1] + log2f(l1)) * kLn2;
+      // Rounded adds and multiplies, never contracted into an FMA with
+      // log2f's last product: nvcc contracted them in some block shapes
+      // (D = 64 at one and two warps) and not in others, so a row's L
+      // depended on the block, and a vp rank's rows were not the
+      // full-length call's.
+      float* lr = lse + (size_t)blockIdx.y * Sq + r;
+      lr[0] = __fmul_rn(__fadd_rn(m2[mt][0], log2f(l0)), kLn2);
+      lr[8] = __fmul_rn(__fadd_rn(m2[mt][1], log2f(l1)), kLn2);
     }
   }
 }
 
 template <int D, int MT, int NW>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-           int BH, int S, float scale, cudaStream_t st, int device) {
+           int BH, int Sq, int Sk, float scale, cudaStream_t st, int device) {
   using C = FwdConfig<D, MT, NW>;
-  if (S % C::kRows != 0) return (int)cudaErrorInvalidValue;
+  if (Sq % C::kRows != 0) return (int)cudaErrorInvalidValue;
   static bool smem_set[64];
   const cudaError_t err = allow_smem(
       (const void*)mha_fwd_kernel<D, MT, NW>, C::kSmem, device, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(S / C::kRows, BH);
+  const dim3 grid(Sq / C::kRows, BH);
   mha_fwd_kernel<D, MT, NW><<<grid, C::kThreads, C::kSmem, st>>>(
-      q, k, v, o, lse, S, scale);
+      q, k, v, o, lse, Sq, Sk, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-             int BH, int S, float scale, int mt, int nw, cudaStream_t st,
-             int device) {
-#define K1_CASE(MT, NW)                                              \
-  case MT * 10 + NW:                                                 \
-    return launch<D, MT, NW>(q, k, v, o, lse, BH, S, scale, st, device);
+             int BH, int Sq, int Sk, float scale, int mt, int nw,
+             cudaStream_t st, int device) {
+#define K1_CASE(MT, NW)                                                   \
+  case MT * 10 + NW:                                                      \
+    return launch<D, MT, NW>(q, k, v, o, lse, BH, Sq, Sk, scale, st, device);
   switch (mt * 10 + nw) {
     K1_CASE(2, 8) K1_CASE(2, 4) K1_CASE(1, 8) K1_CASE(1, 4) K1_CASE(1, 2)
     K1_CASE(1, 1)
@@ -209,17 +220,19 @@ int launch_d(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
 
 extern "C" {
 
-// q, k, v, o: [BH, S, D] contiguous bf16 on device ``device``, 16-byte
-// aligned; lse: [BH, S] f32 or null (then not written). D in {32, 64}; S a
-// multiple of 128 and of the block's rows 16 * mt * nw; scale > 0; (mt, nw)
+// q, o: [BH, Sq, D] and k, v: [BH, Sk, D], contiguous bf16 on device
+// ``device``, 16-byte aligned; lse: [BH, Sq] f32 or null (then not
+// written). D in {32, 64}; Sk a multiple of 128; Sq a multiple of the
+// block's rows 16 * mt * nw; scale > 0; (mt, nw)
 // in {(2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)}. Launches on
 // ``stream``; returns cudaGetLastError().
 int mha_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                 void* lse, int BH, int S, int D, float scale, int mt, int nw,
-                 void* stream, int device) {
+                 void* lse, int BH, int Sq, int Sk, int D, float scale, int mt,
+                 int nw, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (S % kBK != 0 || !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  if (Sk % kBK != 0 || Sq <= 0 || !(scale > 0.f))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const bf16*>(q);
   const auto* kk = static_cast<const bf16*>(k);
@@ -227,9 +240,11 @@ int mha_fwd_bf16(const void* q, const void* k, const void* v, void* o,
   auto* oo = static_cast<bf16*>(o);
   auto* ll = static_cast<float*>(lse);
   if (D == 32)
-    return launch_d<32>(qq, kk, vv, oo, ll, BH, S, scale, mt, nw, st, device);
+    return launch_d<32>(qq, kk, vv, oo, ll, BH, Sq, Sk, scale, mt, nw, st,
+                        device);
   if (D == 64)
-    return launch_d<64>(qq, kk, vv, oo, ll, BH, S, scale, mt, nw, st, device);
+    return launch_d<64>(qq, kk, vv, oo, ll, BH, Sq, Sk, scale, mt, nw, st,
+                        device);
   return (int)cudaErrorInvalidValue;
 }
 

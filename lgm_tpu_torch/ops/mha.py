@@ -2,24 +2,31 @@
 versions.
 
 ``mha_fwd`` is the port of ``lgm_tpu/ops/mha.py``'s K-resident forward
-(``_fwd_kernel`` via ``_mha_fwd``): full unmasked attention over
-``[BH, S, D]``, exact softmax (row max over all keys, no online
-rescaling), P rounded to the input dtype before P.V, f32 accumulation,
-output in the input dtype. With ``return_lse`` it also returns the f32
-logsumexp L = m + log(l) of each row's scaled logits (m the row max, l
-the f32 sum of the unrounded P), ``[BH, S]``. On a CUDA tensor it
-launches the hand-written kernel in ``csrc/mha_fwd.cu`` (bf16, D in
-{32, 64}, S a multiple of 128, scale > 0) or raises; on a CPU tensor it
-runs ``mha_reference``, the same function in plain PyTorch.
+(``_fwd_kernel`` via ``_mha_fwd``): full unmasked attention of q
+``[BH, Sq, D]`` over k, v ``[BH, Sk, D]``, exact softmax (row max over
+all keys, no online rescaling), P rounded to the input dtype before P.V,
+f32 accumulation, output in the input dtype. With ``return_lse`` it also
+returns the f32 logsumexp L = m + log(l) of each row's scaled logits (m
+the row max, l the f32 sum of the unrounded P), ``[BH, Sq]``. On a CUDA
+tensor it launches the hand-written kernel in ``csrc/mha_fwd.cu`` (bf16,
+D in {32, 64}, Sk a multiple of 128, Sq of 64, scale > 0) or raises; on
+a CPU tensor it runs ``mha_reference``, the same function in plain
+PyTorch. Sq differs from Sk under the view-sharded U-Net, where a vp rank
+holds the queries of its own views and the keys of all of them
+(``mha_views``); each row is then bit for bit the row of the Sq = Sk
+call, since a row's arithmetic reads only its own q row and every key.
 
 ``mha_bwd`` is the port of the backward (``_bwd_kernel`` via
 ``_mha_bwd``): from q, k, v, o, the forward's L and the cotangent dO it
 forms the normalized P = exp(s - L), dS = P∘(dO·Vᵀ − rowsum(dO∘O)) with
 dO, dS and P rounded to the input dtype before their products, and
-returns dq = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO in the input dtype.
-On a CUDA tensor it launches ``csrc/mha_bwd.cu``; on a CPU tensor it runs
-``mha_bwd_reference``. ``mha`` joins the two in an autograd Function.
-Each kernel's design note and bound are in its source.
+returns dq = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO in the input dtype
+(dK and dV in f32 with ``dkv_f32``: a vp rank's partial sums, summed over
+the ranks before one rounding). On a CUDA tensor it launches
+``csrc/mha_bwd.cu``; on a CPU tensor it runs ``mha_bwd_reference``.
+``mha`` joins the two in an autograd Function, and ``mha_views`` does so
+for a vp rank, gathering K and V over the group and summing their
+gradients back. Each kernel's design note and bound are in its source.
 
 The residuals are q, k, v, o **and L**, where ``_mha_fwd`` saves only q,
 k, v, o and its backward recomputes the row max and sum in two extra
@@ -45,22 +52,26 @@ import functools
 import torch
 
 from lgm_tpu_torch.ops import _build
+from lgm_tpu_torch.parallel import dist
 
 _SIGNATURES = {
     "mha_fwd_bf16": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
 _BWD_SIGNATURES = {
     "mha_bwd_bf16": (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int],
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
-_TILE = 128  # keys (queries) per staged tile; S must be a multiple
+_TILE = 128  # keys per staged tile; Sk must be a multiple
+# Queries per staged tile of the dK/dV kernel where Sq is not a multiple
+# of _TILE; Sq must be a multiple.
+_Q_TILE = 64
 # Block shapes each kernel is built for, as (m-tiles of 16 rows per warp,
 # warps per block), and each kernel's own list by D in order of preference,
 # as ``scripts/torch_mha_blocks.py`` measured them. At D = 64 two m-tiles
@@ -77,9 +88,10 @@ _DKV_BLOCKS = {32: ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1)),
 
 def block_shape(blocks, BH: int, S: int, sms: int):
     """The first (most preferred) block shape of ``blocks`` whose grid
-    still puts a block on every one of ``sms`` multiprocessors, else the
-    last: at S = 256 a 64-row block leaves half of an H100's 132 SMs
-    idle."""
+    over the ``S`` rows the kernel runs over (queries in K1 and the dq
+    kernel, keys in the dK/dV kernel) still puts a block on every one of
+    ``sms`` multiprocessors, else the last: at S = 256 a 64-row block
+    leaves half of an H100's 132 SMs idle."""
     for mt, nw in blocks:
         rows = 16 * mt * nw
         if S % rows == 0 and S // rows * BH >= sms:
@@ -89,8 +101,9 @@ def block_shape(blocks, BH: int, S: int, sms: int):
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, return_lse: bool = False):
-    """Plain version of K1: q/k/v [BH, S, D] -> [BH, S, D] in q's dtype,
-    and with ``return_lse`` also the f32 row logsumexp [BH, S]."""
+    """Plain version of K1: q [BH, Sq, D], k/v [BH, Sk, D] -> [BH, Sq, D]
+    in q's dtype, and with ``return_lse`` also the f32 row logsumexp
+    [BH, Sq]."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -101,8 +114,11 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def mha_bwd_reference(q, k, v, o, do, scale: float, lse):
-    """Plain version of K1ᵇ: (dq, dk, dv), each [BH, S, D] in q's dtype.
+def mha_bwd_reference(q, k, v, o, do, scale: float, lse,
+                      dkv_f32: bool = False):
+    """Plain version of K1ᵇ: (dq, dk, dv), dq [BH, Sq, D] and dk, dv
+    [BH, Sk, D], in q's dtype (dk and dv in f32, unrounded, with
+    ``dkv_f32``).
 
     The arithmetic of ``lgm_tpu/ops/mha.py::_bwd_kernel`` with P's
     statistics read from the forward's ``lse``: P = exp(s − L) normalized
@@ -120,40 +136,48 @@ def mha_bwd_reference(q, k, v, o, do, scale: float, lse):
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dob)
+    if dkv_f32:
+        return dq.to(dt), dk, dv
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def kernel_takes(dtype: torch.dtype, S: int, D: int, scale: float) -> bool:
+def kernel_takes(dtype: torch.dtype, Sq: int, Sk: int, D: int,
+                 scale: float) -> bool:
     """Whether K1 and K1ᵇ take attention of this dtype and shape: bf16, D
-    in (32, 64), S a multiple of 128 and scale > 0 (what the wrappers
-    check on a CUDA tensor)."""
-    return (dtype is torch.bfloat16 and D in (32, 64) and S % _TILE == 0
-            and scale > 0)
+    in (32, 64), Sk keys a multiple of 128, Sq queries a positive multiple
+    of 64 and scale > 0 (what the wrappers check on a CUDA tensor)."""
+    return (dtype is torch.bfloat16 and D in (32, 64) and Sk % _TILE == 0
+            and Sq > 0 and Sq % _Q_TILE == 0 and scale > 0)
 
 
-def _check_kernel_inputs(what: str, ref: torch.Tensor, named,
-                         scale: float, lse=None) -> None:
-    shape, dev = ref.shape, ref.device
-    BH, S, D = shape
+def _check_kernel_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
+                         named, scale: float, lse=None) -> None:
+    """``named`` are (name, tensor) pairs, each of q's shape ([BH, Sq,
+    D]) or of k's ([BH, Sk, D]) as its name says (k, v, dk, dv)."""
+    dev = q.device
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
     for name, x in named:
-        if x.dtype is not torch.bfloat16 or x.shape != shape \
+        shape = (BH, Sk, D) if name in ("k", "v") else (BH, Sq, D)
+        if x.dtype is not torch.bfloat16 or tuple(x.shape) != shape \
                 or x.device != dev or not x.is_contiguous() \
                 or x.data_ptr() % 16:
             raise ValueError(
                 f"{what}: {name} must be a contiguous, 16-byte aligned bf16 "
-                f"tensor of shape {tuple(shape)} on {dev}, got {x.dtype} "
+                f"tensor of shape {shape} on {dev}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
     if lse is not None and (lse.dtype is not torch.float32
-                            or lse.shape != (BH, S) or lse.device != dev
+                            or lse.shape != (BH, Sq) or lse.device != dev
                             or not lse.is_contiguous()):
         raise ValueError(
             f"{what}: lse must be a contiguous f32 tensor of shape "
-            f"{(BH, S)} on {dev}, got {lse.dtype} {tuple(lse.shape)} on "
+            f"{(BH, Sq)} on {dev}, got {lse.dtype} {tuple(lse.shape)} on "
             f"{lse.device}")
-    if D not in (32, 64) or S % _TILE or not scale > 0:
+    if not kernel_takes(q.dtype, Sq, Sk, D, scale):
         raise ValueError(
-            f"{what} kernel takes D in (32, 64), S % {_TILE} == 0 and "
-            f"scale > 0, got D={D}, S={S}, scale={scale}")
+            f"{what} kernel takes D in (32, 64), Sk % {_TILE} == 0, "
+            f"Sq % {_Q_TILE} == 0 and scale > 0, got D={D}, Sq={Sq}, "
+            f"Sk={Sk}, scale={scale}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,17 +199,19 @@ def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "mha_fwd has no gradient of its own: call mha(), whose backward "
             "is K1ᵇ")
-    _check_kernel_inputs("mha_fwd", q, (("q", q), ("k", k), ("v", v)), scale)
-    BH, S, D = q.shape
+    _check_kernel_inputs("mha_fwd", q, k, (("q", q), ("k", k), ("v", v)),
+                         scale)
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
     o = torch.empty_like(q)
-    lse = (torch.empty(BH, S, dtype=torch.float32, device=dev)
+    lse = (torch.empty(BH, Sq, dtype=torch.float32, device=dev)
            if return_lse else None)
-    mt, nw = block_shape(_FWD_BLOCKS[D], BH, S, _sms(dev))
+    mt, nw = block_shape(_FWD_BLOCKS[D], BH, Sq, _sms(dev))
     lib = _build.load("mha_fwd", _SIGNATURES)
     err = lib.mha_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), BH, S, D, float(scale), mt,
-        nw, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        None if lse is None else lse.data_ptr(), BH, Sq, Sk, D, float(scale),
+        mt, nw, torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(lib, err, "mha_fwd")
     mha_fwd.launches += 1
     return (o, lse) if return_lse else o
@@ -194,29 +220,34 @@ def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 mha_fwd.launches = 0
 
 
-def mha_bwd(q, k, v, o, do, scale: float, lse):
+def mha_bwd(q, k, v, o, do, scale: float, lse, dkv_f32: bool = False):
     """K1ᵇ on CUDA tensors, ``mha_bwd_reference`` on CPU tensors; ``lse``
-    is the forward's ``[BH, S]`` f32 statistic. Returns (dq, dk, dv)."""
+    is the forward's ``[BH, Sq]`` f32 statistic. Returns (dq, dk, dv), dk
+    and dv in f32 with ``dkv_f32``."""
     dev = q.device
     if dev.type == "cpu":
-        return mha_bwd_reference(q, k, v, o, do, scale, lse)
+        return mha_bwd_reference(q, k, v, o, do, scale, lse, dkv_f32)
     if dev.type != "cuda":
         raise ValueError(f"mha_bwd: unsupported device {dev}")
-    _check_kernel_inputs("mha_bwd", q, (("q", q), ("k", k), ("v", v),
-                                        ("o", o), ("do", do)), scale, lse)
-    BH, S, D = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    _check_kernel_inputs("mha_bwd", q, k, (("q", q), ("k", k), ("v", v),
+                                           ("o", o), ("do", do)), scale, lse)
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    dq = torch.empty_like(q)
+    dk, dv = (torch.empty_like(k, dtype=torch.float32 if dkv_f32 else None)
+              for _ in range(2))
     # rowsum(dO∘O), written by the dq kernel and read by the dK/dV kernel.
-    drow = torch.empty(BH, S, dtype=torch.float32, device=dev)
+    drow = torch.empty(BH, Sq, dtype=torch.float32, device=dev)
     sms = _sms(dev)
-    mt_q, nw_q = block_shape(_DQ_BLOCKS[D], BH, S, sms)
-    mt_kv, nw_kv = block_shape(_DKV_BLOCKS[D], BH, S, sms)
+    mt_q, nw_q = block_shape(_DQ_BLOCKS[D], BH, Sq, sms)
+    mt_kv, nw_kv = block_shape(_DKV_BLOCKS[D], BH, Sk, sms)
     lib = _build.load("mha_bwd", _BWD_SIGNATURES)
     err = lib.mha_bwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), drow.data_ptr(), BH, S, D, float(scale), mt_q, nw_q,
-        mt_kv, nw_kv, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+        dv.data_ptr(), drow.data_ptr(), BH, Sq, Sk, D, float(scale), mt_q,
+        nw_q, mt_kv, nw_kv, int(dkv_f32),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(lib, err, "mha_bwd")
     mha_bwd.launches += 1
     return dq, dk, dv
@@ -251,3 +282,40 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     or v.requires_grad):
         return _MHA.apply(q, k, v, scale)
     return mha_fwd(q, k, v, scale)
+
+
+class _MHAViews(torch.autograd.Function):
+    """K1 and K1ᵇ on one vp rank of the view-sharded U-Net: q holds the
+    rank's own tokens ([BH, S/vp, D]), k and v too; the forward gathers k
+    and v over the vp ``group`` in rank order (the one-process token
+    order) and runs K1 at Sq = S/vp, Sk = S. The backward runs K1ᵇ with
+    f32 dK and dV, the rank's partial sums over its own queries, sums
+    them over the group (``dist.reduce_scatter_axis``) and rounds the
+    rank's own slice once, as one process rounds the whole sum once.
+    Residuals: q, the gathered k and v, o and the row logsumexp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, group):
+        kv = dist.gather_axis(torch.stack((k, v)), 2, group)
+        k_all, v_all = kv[0], kv[1]
+        o, lse = mha_fwd(q, k_all, v_all, scale, return_lse=True)
+        ctx.save_for_backward(q, k_all, v_all, o, lse)
+        ctx.scale, ctx.group = scale, group
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = mha_bwd(q, k, v, o, do.contiguous(), ctx.scale, lse,
+                             dkv_f32=True)
+        dkv = dist.reduce_scatter_axis(torch.stack((dk, dv)), 2, ctx.group)
+        dkv = dkv.to(q.dtype)
+        return dq, dkv[0], dkv[1], None, None
+
+
+def mha_views(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, group) -> torch.Tensor:
+    """``mha`` on one vp rank: the rank's queries attend to the keys and
+    values of every rank of ``group`` (each [BH, S/vp, D], gathered in
+    rank order), through ``_MHAViews``."""
+    return _MHAViews.apply(q, k, v, scale, group)

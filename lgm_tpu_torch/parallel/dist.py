@@ -10,13 +10,23 @@ reference's Accelerate DDP over NCCL; SURVEY.md §5.8):
   group along each axis. Without ``WORLD_SIZE`` it is one process and no
   group.
 - ``shard_batch``: the rank's part of a global batch by lgm_tpu's rule:
-  ``input`` and every array of fewer than 2 dims split over dp on axis 0
-  only, every other array over dp on axis 0 and over vp on axis 1, the
-  view axis. Every vp rank of a scene holds all its input views and runs
-  the U-Net on them, then renders and takes the loss on its own slice of
-  the supervision views, so lgm_tpu's ``gather_gaussians`` all-gather is
-  the identity here and the results are lgm_tpu's (the view-sharded U-Net
-  of ``constrain_views``, which saves memory, is not ported).
+  every array of fewer than 2 dims split over dp on axis 0 only, every
+  other array over dp on axis 0 and over vp on axis 1, the view axis
+  (``input`` too where vp divides its views, ``shards_input``). Rank v
+  of a vp group holds views v·V/vp … (v+1)·V/vp − 1 of every scene.
+- The view-sharded U-Net (lgm_tpu's ``constrain_views`` and
+  ``gather_gaussians``): each vp rank runs the U-Net's convolutions on
+  its own input views only; at each cross-view attention the rank's
+  queries attend to the keys and values of every rank's views, gathered
+  over the vp group (``ops/mha.py::mha_views``, or ``gather_views`` on
+  the dense route); the Gaussians are gathered the same way before
+  rendering, and each rank renders and takes the loss on its own slice
+  of the supervision views. ``gather_views`` is the all-gather of a
+  token or Gaussian axis in vp rank order, whose backward is the f32 sum
+  reduce-scatter: with DistributedDataParallel's mean over the world,
+  the gradient is the one-process gradient. Where vp does not divide the
+  input views, every vp rank runs the whole U-Net, as ``constrain_views``
+  is a no-op when the axis does not divide.
 - ``replicate`` is DistributedDataParallel's initial broadcast, in the
   trainer.
 - ZeRO-1 (``shard_opt_state``): ``zero1_axis`` picks each large leaf's
@@ -122,13 +132,69 @@ def _part(x: torch.Tensor, axis: int, parts: int, index: int):
     return x.narrow(axis, index * (n // parts), n // parts)
 
 
+def shards_input(world: World, n_input_views: int) -> bool:
+    """Whether the U-Net runs view-sharded: vp > 1 and vp divides the
+    input views (else each vp rank runs all of them)."""
+    return world.vp > 1 and n_input_views % world.vp == 0
+
+
+def views_group(world: World, n_input_views: int):
+    """The vp group the view-sharded U-Net gathers over, or None."""
+    return world.vp_group if shards_input(world, n_input_views) else None
+
+
 def shard_views(world: World, batch: Dict[str, torch.Tensor]) -> Dict:
-    """The rank's vp slice of the view axis of every per-view array."""
+    """The rank's vp slice of the view axis of every per-view array
+    (``input``'s where ``shards_input``)."""
     if world.vp == 1:
         return batch
-    return {k: v if k == "input" or v.ndim < 2 else
+    split_input = "input" in batch and shards_input(world,
+                                                     batch["input"].shape[1])
+    return {k: v if (k == "input" and not split_input) or v.ndim < 2 else
             _part(v, 1, world.vp, world.vp_rank).contiguous()
             for k, v in batch.items()}
+
+
+def group_size(group) -> int:
+    """The ranks of ``group``; 1 for None (one process)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def gather_axis(x: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """The group's tensors joined along ``axis`` in rank order (an
+    all-gather; no gradient)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=axis)
+
+
+def reduce_scatter_axis(x: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """The sum over the group of ``x``, in f32, and of it this rank's
+    slice along ``axis`` (rank r the r-th of equal slices)."""
+    n = dist.get_world_size(group)
+    chunks = [c.contiguous() for c in x.float().chunk(n, dim=axis)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+class _GatherViews(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, group):
+        ctx.axis, ctx.group = axis, group
+        return gather_axis(x, axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = reduce_scatter_axis(g, ctx.axis, ctx.group).to(g.dtype)
+        return out, None, None
+
+
+def gather_views(x: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """The vp ranks' slices of a token or Gaussian axis joined in rank
+    order (view order); the backward sums the cotangent over the group in
+    f32 and keeps this rank's slice."""
+    return _GatherViews.apply(x, axis, group)
 
 
 def shard_batch(world: World, batch: Dict[str, torch.Tensor]) -> Dict:

@@ -39,7 +39,10 @@ Several processes (``python -m torch.distributed.run --nproc_per_node N
 -m lgm_tpu_torch.train ...``; NCCL on ``cuda:LOCAL_RANK``, gloo with
 ``--device cpu``) form a (dp, vp) world (``parallel/dist.py``): each rank
 takes its part of the global batch of ``batch_size`` scenes, the LGM runs
-under DistributedDataParallel (LPIPS, frozen, outside it), ``--zero1 1``
+under DistributedDataParallel (LPIPS, frozen, outside it), with ``--vp V``
+(V dividing the input views) each vp rank runs the U-Net on its own input
+views and gathers the keys, values and Gaussians of the others' (the
+view-sharded U-Net), ``--zero1 1``
 shards the optimizer state over dp, every rank draws the same background
 colours, and logged scalars and eval means are reduced over the world, so
 they are a one-process run's. Rank 0 logs, writes image grids and writes
@@ -504,6 +507,10 @@ def _run(opt: Options, dev: torch.device, world: dist.World,
             state = load_checkpoint(resume, state)
     if opt.zero1:
         state.optimizer.shard(world)
+    # The vp ranks of a scene share its batch (broadcast_scenes or the
+    # synthetic global batch) and keep their own views of it.
+    state.model.lgm.views_group = dist.views_group(world,
+                                                   opt.num_input_views)
     if world.distributed:
         # Gradients are averaged over the world in the backward; the
         # wrapper's first act is to broadcast rank 0's parameters (the LGM

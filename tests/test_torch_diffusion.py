@@ -195,7 +195,7 @@ def test_attention_gate_matches_lgm_tpu(dtype, B, heads, Nq, Nk, hd,
     logits_bytes = B * heads * Nq * Nk * 2
     want = (Nq == Nk and Nq % 512 == 0
             and (Nq >= 2048 or logits_bytes > 2e8) and hd <= 64
-            and kernel_takes(dtype, Nq, hd, hd ** -0.5))
+            and kernel_takes(dtype, Nq, Nk, hd, hd ** -0.5))
     assert mv_unet.kernel_route(dtype, B, heads, Nq, Nk, hd) == want
     called = []
     monkeypatch.setattr(mv_unet, "mha",

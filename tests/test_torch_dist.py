@@ -1,9 +1,12 @@
 """Multi-process training of the port on the CPU over gloo: worlds of 2
-ranks (dp 2) and 4 ranks (dp 2 x vp 2, ZeRO-1) launched through
-torch.distributed.run, each one step of nano in fp32 on the synthetic
-global batch, against the one-process run of lgm_tpu_torch.train (which
-test_torch_train.py holds against lgm_tpu's step); the rank slices of a
-loader batch; a ZeRO-1 checkpoint loaded in one process.
+ranks (dp 2) and 4 ranks (dp 2 x vp 2, ZeRO-1; dp 1 x vp 4 with four
+input views, one a rank) launched through torch.distributed.run, each one
+step of nano in fp32 on the synthetic global batch, against the
+one-process run of lgm_tpu_torch.train on the same options (which
+test_torch_train.py holds against lgm_tpu's step); under vp the U-Net is
+view-sharded (each rank runs B·V/vp input views, gathering the others'
+keys, values and Gaussians); the rank slices of a loader batch; a ZeRO-1
+checkpoint loaded in one process.
 
 Tolerances: the ranks' gradients are averaged by DistributedDataParallel
 in another order than one process's batch mean, so values agree to f32
@@ -36,19 +39,28 @@ ARGS = ["nano", "--device", "cpu", "--mixed-precision", "fp32",
         "--total-steps", "1"]
 
 # Runs train.main in a rank of torch.distributed.run and saves, beside
-# the checkpoint, what the rank held: its ZeRO-1 axes and Adam moments.
+# the checkpoint, what the rank held: its ZeRO-1 axes and Adam moments,
+# and the shape of every input its U-Net ran on.
 _DRIVER = r"""
 import os, sys, torch
 from lgm_tpu_torch import train
+from lgm_tpu_torch.models import unet
 save = train.save_checkpoint
+unet_in = []
+forward = unet.UNet.forward
+
+def unet_spy(self, x, *args, **kwargs):
+    unet_in.append(tuple(x.shape))
+    return forward(self, x, *args, **kwargs)
 
 def spy(workspace, state, step, world=None):
     o = state.optimizer
     torch.save({"axes": o.axes, "mu": o.mu, "nu": o.nu, "dp": world.dp,
-                "dp_rank": world.dp_rank},
+                "dp_rank": world.dp_rank, "unet_in": unet_in},
                os.path.join(workspace, f"rank{world.rank}.pt"))
     return save(workspace, state, step, world)
 
+unet.UNet.forward = unet_spy
 train.save_checkpoint = spy
 train.main(sys.argv[1:])
 """
@@ -91,7 +103,15 @@ def runs(tmp_path_factory):
             "dp2": _run(tmp, "dp2", 2),
             "dp2_vp2_zero1": _run(tmp, "dp2_vp2_zero1", 4,
                                   ["--vp", "2", "--zero1", "1"]),
-            "dp2_zero1": _run(tmp, "dp2_zero1", 2, ["--zero1", "1"])}
+            "dp2_zero1": _run(tmp, "dp2_zero1", 2, ["--zero1", "1"]),
+            "one_v4": _run(tmp, "one_v4", 1, V4),
+            "dp1_vp4": _run(tmp, "dp1_vp4", 4, [*V4, "--vp", "4"])}
+
+
+# Four input views (nano has two), so that vp 4 puts one on each rank.
+V4 = ["--num-input-views", "4"]
+# The one-process run each world is held to (the same options).
+REFERENCE = {"dp1_vp4": "one_v4"}
 
 
 def _ckpt(ws):
@@ -126,21 +146,41 @@ def _assert_state_close(ours, ref):
     assert ours["step"] == ref["step"] == 1
 
 
-@pytest.mark.parametrize("world", ["dp2", "dp2_vp2_zero1", "dp2_zero1"])
+@pytest.mark.parametrize("world", ["dp2", "dp2_vp2_zero1", "dp2_zero1",
+                                   "dp1_vp4"])
 def test_step_matches_one_process(runs, world):
     """After one step, the world's parameters and optimizer state (the
     checkpoint, gathered from the ZeRO-1 slices where sharded) are the
     one-process step's on the same global batch."""
-    _assert_state_close(_ckpt(runs[world][0]), _ckpt(runs["one"][0]))
+    ref = REFERENCE.get(world, "one")
+    _assert_state_close(_ckpt(runs[world][0]), _ckpt(runs[ref][0]))
 
 
-@pytest.mark.parametrize("world", ["dp2", "dp2_vp2_zero1"])
+@pytest.mark.parametrize("world,ranks,dp,views", [
+    ("dp2", 2, 2, 2), ("dp2_vp2_zero1", 4, 2, 1), ("dp1_vp4", 4, 1, 1)])
+def test_each_rank_runs_its_views_through_the_unet(runs, world, ranks, dp,
+                                                   views):
+    """Every U-Net call of every rank (the step's and the eval's) ran on
+    the rank's B = batch / dp scenes x V/vp input views: under vp the
+    U-Net is view-sharded, not replicated."""
+    opt = get_config("nano")
+    B, s = opt.batch_size // dp, opt.input_size
+    for rank in range(ranks):
+        held = torch.load(os.path.join(runs[world][0], f"rank{rank}.pt"),
+                          weights_only=True)
+        assert len(held["unet_in"]) >= 2
+        assert set(held["unet_in"]) == {(B * views, 9, s, s)}, \
+            (rank, held["unet_in"])
+
+
+@pytest.mark.parametrize("world", ["dp2", "dp2_vp2_zero1", "dp1_vp4"])
 def test_logged_metrics_reduce_to_one_process(runs, world):
     """Rank 0 alone logs (one train and one eval record, one printed step
     line), and the logged loss, psnr (reduced through its mse) and
     gradient norm, and the eval means, are the one-process run's."""
     ws, out = runs[world]
-    records, ref = _metrics(ws), _metrics(runs["one"][0])
+    records = _metrics(ws)
+    ref = _metrics(runs[REFERENCE.get(world, "one")][0])
     assert len(records) == len(ref) == 2
     assert sum(l.startswith("step 1:") for l in out.splitlines()) == 1
     assert sum(l.startswith("eval @ 1") for l in out.splitlines()) == 1
@@ -222,7 +262,8 @@ def lvis_root(tmp_path_factory):
 def test_rank_slices_of_a_loader_batch(lvis_root):
     """Each dp rank's loader batch is its slice of the global batch (the
     scenes disjoint, their union the global batch in order), and each vp
-    rank then keeps its slice of the views and every input view."""
+    rank then keeps its slice of the views and of the input views (vp
+    divides them: the U-Net is view-sharded)."""
     opt = get_config("nano").replace(data_path_rendering=lvis_root,
                                      num_input_views=2, num_views=4,
                                      batch_size=0)
@@ -244,7 +285,8 @@ def test_rank_slices_of_a_loader_batch(lvis_root):
         world = dist.World(rank=rank, size=4, vp=2)
         ours = dist.shard_views(world, parts[world.dp_rank][0])
         full = parts[world.dp_rank][0]
-        assert torch.equal(ours["input"], full["input"])
+        assert torch.equal(ours["input"], full["input"][
+            :, world.vp_rank:world.vp_rank + 1])
         for k in ("images_output", "masks_output", "cam_view",
                   "cam_view_proj", "cam_pos"):
             assert torch.equal(ours[k], full[k][:, 2 * world.vp_rank:

@@ -64,6 +64,68 @@ def test_orbit_frames_match_jax(nano, tmp_path):
     assert np.abs(ours.astype(int) - ref.astype(int)).max() <= 2
 
 
+@pytest.mark.parametrize("n_devices,chunk", [(2, 4), (3, 5)])
+def test_orbit_split_over_devices_is_the_one_device_video(nano, n_devices,
+                                                          chunk):
+    """Each chunk's frames split over ``n_devices`` devices (on the CPU,
+    the one device n times, each share in its own host thread, as each
+    card renders its own) give the one-device video byte for byte: every
+    frame is rendered alone, whatever else shares its call. 3 devices and
+    chunk 5: the chunk is cut to 3, and the last chunk of 8 frames holds
+    2."""
+    opt, _, _, _, g_jax = nano
+    one = infer.render_orbit_video(g_jax[0], opt, n_frames=8, chunk=4,
+                                   device="cpu", n_devices=1)
+    split = infer.render_orbit_video(g_jax[0], opt, n_frames=8, chunk=chunk,
+                                     device="cpu", n_devices=n_devices)
+    assert split.dtype == np.uint8 and split.shape == one.shape
+    assert np.array_equal(split, one)
+
+
+@pytest.mark.parametrize("n_frames,chunk,fancy,n_devices", [
+    (180, 30, False, 1), (180, 30, False, 4), (180, 30, False, 8),
+    (180, 30, False, 7), (8, 30, False, 16), (5, 2, False, 4),
+    (180, 30, True, 8), (12, 1, False, 3)])
+def test_orbit_split_rule_is_lgm_tpus(monkeypatch, tmp_path, n_frames, chunk,
+                                      fancy, n_devices):
+    """The devices and chunk of an orbit render are lgm_tpu's: read off
+    the device count its renderer is built for and the frames each call
+    gets (its chunk renderer and video writer stubbed)."""
+    seen = {}
+
+    def fake_fn(size, tan, n):
+        seen["n"] = n
+
+        def render(g, views, sm):
+            seen.setdefault("chunks", []).append(views.shape[1])
+            return np.zeros((1, views.shape[1], 2, 2, 3), np.uint8)
+        return render
+
+    monkeypatch.setattr(jinfer, "_orbit_render_fn", fake_fn)
+    monkeypatch.setattr(jinfer, "_write_video", lambda *a: None)
+    jopt = jax_get_config("nano")
+    jinfer.render_orbit_video(np.zeros((4, 14), np.float32), jopt,
+                              str(tmp_path / "o.mp4"), n_frames=n_frames,
+                              chunk=chunk, fancy=fancy, n_devices=n_devices)
+    n, ours_chunk = infer.orbit_split(n_frames, chunk, fancy, n_devices,
+                                      torch.device("cpu"))
+    assert n == seen["n"]
+    if fancy:  # one frame a call on both sides
+        assert set(seen["chunks"]) == {1}
+    else:
+        assert ours_chunk == seen["chunks"][0]
+
+
+def test_orbit_devices_default(monkeypatch):
+    """By default every CUDA card (four here, so a chunk of 30 becomes
+    28), one on the CPU; ``fancy`` one."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert infer.orbit_split(180, 30, False, None, cpu) == (1, 30)
+    assert infer.orbit_split(180, 30, False, None, cuda) == (4, 28)
+    assert infer.orbit_split(180, 30, True, None, cuda) == (1, 30)
+
+
 def test_process_writes_ply_and_video(nano, tmp_path):
     opt, _, model, mv, g_jax = nano
     out = infer.process(opt, mv, str(tmp_path / "obj"), device="cpu",

@@ -225,6 +225,179 @@ def test_mha_bwd_kernel_refuses_what_it_does_not_take(cuda):
         mha_bwd(w, w, w, w, w, 1.0, lse[:, :64])  # lse not [BH, S]
 
 
+# Unequal lengths, as on a vp rank of the view-sharded U-Net: (BH, S, D,
+# vp), each rank S/vp queries against all S keys. The big preset's three
+# site shapes at vp 2 and 4 (at vp 4 the 8² sites are Sq 64, Sk 256, the
+# dK/dV kernel's 64-query tiles), and a small odd BH.
+MHA_VP_SHAPES = [(16, 4096, 32, 2), (32, 4096, 32, 4), (16, 1024, 64, 4),
+                 (32, 1024, 64, 2), (16, 256, 64, 4), (32, 256, 64, 2),
+                 (3, 512, 64, 4)]
+
+
+# The f32 sums of the ranks' dK/dV partials group the queries otherwise
+# than the full call's one accumulator: at 4,096 keys they differ by up to
+# 6e-6 of the tensor's largest |value| in f32 (measured on the card), so
+# where a sum cancels to near 0 its bf16 rounding may differ by more than
+# one step of its own magnitude. Allowed: one bf16 step of the element plus
+# 2^-16 of the scale.
+DKV_SUM_SCALE_TOL = 2.0 ** -16
+
+
+def _within_one_bf16_step(a, b):
+    """Each element of bf16 ``a`` within one bf16 rounding step (at the
+    larger of the two magnitudes) of bf16 ``b``, plus DKV_SUM_SCALE_TOL of
+    b's largest |value|."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    step = torch.ldexp(torch.ones_like(a), e - 8)
+    slack = DKV_SUM_SCALE_TOL * b.abs().max()
+    assert torch.all((a - b).abs() <= step + slack), \
+        (a - b).abs().max().item()
+
+
+@pytest.mark.parametrize("BH,S,D,vp", MHA_VP_SHAPES)
+def test_mha_kernels_at_a_vp_ranks_lengths(cuda, BH, S, D, vp):
+    """Each rank's K1 (Sq = S/vp, Sk = S) and K1ᵇ with f32 dK/dV partials
+    against their plain versions; the ranks' o, lse and dq rows bit for
+    bit the full-length call's; the sum of the ranks' f32 dK and dV,
+    rounded once to bf16, within one bf16 step of the full call's (and
+    the f32 regrouping's allowance, ``DKV_SUM_SCALE_TOL``)."""
+    rng = np.random.default_rng(S + D + vp)
+    q, k, v, do = (_bf16(rng, (BH, S, D), cuda) for _ in range(4))
+    scale = D ** -0.5
+    n = S // vp
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+        dq, dk, dv = mha_bwd(q, k, v, o, do, scale, lse)
+        dk_sum = torch.zeros(BH, S, D, device=cuda)
+        dv_sum = torch.zeros(BH, S, D, device=cuda)
+        for r in range(vp):
+            rows = slice(r * n, (r + 1) * n)
+            q_r, do_r = q[:, rows].contiguous(), do[:, rows].contiguous()
+            o_r, lse_r = mha_fwd(q_r, k, v, scale, return_lse=True)
+            ref, ref_lse = mha_reference(q_r, k, v, scale, return_lse=True)
+            _close(o_r, ref)
+            _close(lse_r, ref_lse, K1_LSE_REL_TOL, 1.0)
+            assert torch.equal(o_r, o[:, rows])
+            assert torch.equal(lse_r, lse[:, rows])
+            ours = mha_bwd(q_r, k, v, o_r, do_r, scale, lse_r, dkv_f32=True)
+            ref = mha_bwd_reference(q_r, k, v, o_r, do_r, scale, lse_r,
+                                    dkv_f32=True)
+            assert ours[0].dtype == torch.bfloat16
+            assert ours[1].dtype == ours[2].dtype == torch.float32
+            for a, b in zip(ours, ref):
+                assert a.shape == b.shape
+                _close(a, b)
+            assert torch.equal(ours[0], dq[:, rows])
+            dk_sum += ours[1]
+            dv_sum += ours[2]
+    torch.cuda.synchronize()
+    _within_one_bf16_step(dk_sum.to(torch.bfloat16), dk)
+    _within_one_bf16_step(dv_sum.to(torch.bfloat16), dv)
+
+
+def test_mha_bwd_f32_partials_round_to_the_bf16_output(cuda):
+    """At equal lengths the f32 dK and dV, rounded to bf16, are the bf16
+    call's bit for bit (the same accumulators, rounded once either way),
+    and dq is the same."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (_bf16(rng, (32, 1024, 64), cuda) for _ in range(4))
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
+        dq, dk, dv = mha_bwd(q, k, v, o, do, 0.125, lse)
+        dq32, dk32, dv32 = mha_bwd(q, k, v, o, do, 0.125, lse, dkv_f32=True)
+    assert torch.equal(dq32, dq)
+    assert torch.equal(dk32.to(torch.bfloat16), dk)
+    assert torch.equal(dv32.to(torch.bfloat16), dv)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Sq", [64, 192])
+def test_mha_unequal_lengths_agree_across_block_shapes(cuda, D, Sq,
+                                                       monkeypatch):
+    """Every block shape each kernel is built for at Sq queries against
+    256 keys (Sq 64 and 192: the dK/dV kernel's 64-query tiles), against
+    the plain versions, f32 dK/dV partials included."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    rng = np.random.default_rng(Sq + D)
+    q, do = (_bf16(rng, (2, Sq, D), cuda) for _ in range(2))
+    k, v = (_bf16(rng, (2, 256, D), cuda) for _ in range(2))
+    scale = D ** -0.5
+    with torch.no_grad():
+        ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
+        for shape in mha_mod._BUILT:
+            if Sq % (16 * shape[0] * shape[1]):
+                continue  # a grid of whole query blocks only
+            for name in ("_FWD_BLOCKS", "_DQ_BLOCKS", "_DKV_BLOCKS"):
+                monkeypatch.setitem(getattr(mha_mod, name), D, (shape,))
+            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+            _close(o, ref)
+            _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+            for f32 in (False, True):
+                for a, b in zip(
+                        mha_bwd(q, k, v, o, do, scale, lse, dkv_f32=f32),
+                        mha_bwd_reference(q, k, v, o, do, scale, lse,
+                                          dkv_f32=f32)):
+                    assert a.dtype == b.dtype
+                    _close(a, b)
+
+
+def test_mha_kernels_refuse_unequal_lengths_they_do_not_take(cuda):
+    k = torch.zeros(1, 256, 32, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(1, 32, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(q, k, k, 1.0)  # Sq % 64
+    q = torch.zeros(1, 64, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(q, k[:, :192].contiguous(), k[:, :192].contiguous(), 1.0)
+    with pytest.raises(ValueError):
+        mha_fwd(q, k, torch.zeros(1, 128, 32, dtype=torch.bfloat16,
+                                  device=cuda), 1.0)  # v not k's shape
+    lse = torch.zeros(1, 64, device=cuda)
+    with pytest.raises(ValueError):
+        mha_bwd(q, k, k, k, q, 1.0, lse)  # o not q's shape
+    with pytest.raises(ValueError):
+        mha_bwd(q, k, k, q, q, 1.0, torch.zeros(1, 256, device=cuda))
+
+
+def test_mha_views_on_a_one_rank_group_is_mha(cuda):
+    """``mha_views`` on a one-rank NCCL group (the gather and the sum are
+    then the identity): the forward and the gradients of ``mha``, bit for
+    bit (the dK/dV partials go through f32 and round once, as the bf16
+    output does), both kernels launched."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from lgm_tpu_torch.ops.mha import mha_views
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             rank=0, world_size=1, device_id=cuda)
+    try:
+        group = tdist.new_group([0])
+        rng = np.random.default_rng(13)
+        q, k, v = (_bf16(rng, (16, 1024, 64), cuda) for _ in range(3))
+        g = _bf16(rng, (16, 1024, 64), cuda)
+        outs = []
+        for fn in (lambda a, b, c: mha(a, b, c, 0.125),
+                   lambda a, b, c: mha_views(a, b, c, 0.125, group)):
+            xs = [x.clone().requires_grad_() for x in (q, k, v)]
+            f0, b0 = mha_fwd.launches, mha_bwd.launches
+            out = fn(*xs)
+            out.backward(g)
+            torch.cuda.synchronize()
+            assert (mha_fwd.launches, mha_bwd.launches) == (f0 + 1, b0 + 1)
+            outs.append([out.detach()] + [x.grad for x in xs])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+    finally:
+        tdist.destroy_process_group()
+
+
 def _scene(n, rng, opaque=0):
     g = np.zeros((n, 14), np.float32)
     g[:, 0:3] = rng.normal(0, 0.3, (n, 3))

@@ -1,6 +1,7 @@
 """Port's attention (K1's and K1ᵇ's plain versions, taken by mha_fwd and
 mha_bwd on CPU tensors) vs lgm_tpu's K-resident Pallas kernels and their
-VJP, run in interpret mode."""
+VJP, run in interpret mode: at equal query and key lengths, and at a vp
+rank's S/vp queries against S keys."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,8 @@ import jax.numpy as jnp
 import torch
 
 from lgm_tpu.ops.mha import mha_kresident
-from lgm_tpu_torch.ops.mha import mha, mha_bwd, mha_fwd, mha_reference
+from lgm_tpu_torch.ops.mha import (kernel_takes, mha, mha_bwd,
+                                   mha_bwd_reference, mha_fwd, mha_reference)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -121,3 +123,82 @@ def test_mha_bwd_rejects_other_devices():
     lse = torch.empty(1, 64, device="meta")
     with pytest.raises(ValueError):
         mha_bwd(q, q, q, q, q, 1.0, lse)
+
+
+@pytest.mark.parametrize("S,D,vp", [(256, 64, 4), (512, 32, 2),
+                                    (512, 64, 4)])
+def test_vp_rank_rows_match_kresident(S, D, vp):
+    """Unequal lengths, as on a vp rank of the view-sharded U-Net: each
+    rank's S/vp queries against all S keys (the plain versions of K1 and
+    K1ᵇ, K1ᵇ with f32 dK/dV partials), against lgm_tpu's mha_kresident
+    and its VJP on the whole sequence (interpret mode). The rank's o and
+    dq are those rows of lgm_tpu's, and the sum of the ranks' f32 dK and
+    dV, rounded once to bf16, is lgm_tpu's dk and dv: to one bf16
+    rounding step (2^-8) of the scale for o, two (2^-7) for the
+    gradients, as the equal-length tests. The rank's row logsumexp is
+    those rows of the equal-length call's, to f32 summation order."""
+    rng = np.random.default_rng(S * D + vp)
+    q, k, v, do = (rng.normal(0, 1, (2, S, D)).astype(np.float32)
+                   for _ in range(4))
+    scale = float(D) ** -0.5
+    qj, kj, vj, doj = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    o_jax, vjp = jax.vjp(lambda a, b, c: mha_kresident(a, b, c, scale),
+                         qj, kj, vj)
+    dq_j, dk_j, dv_j = (np.asarray(g.astype(jnp.float32)) for g in vjp(doj))
+    o_jax = np.asarray(o_jax.astype(jnp.float32))
+    tq, tk, tv, tdo = (torch.as_tensor(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    _, lse_full = mha_fwd(tq, tk, tv, scale, return_lse=True)
+    n = S // vp
+    assert kernel_takes(torch.bfloat16, n, S, D, scale)
+    dk_sum = torch.zeros(2, S, D)
+    dv_sum = torch.zeros(2, S, D)
+    for r in range(vp):
+        rows = slice(r * n, (r + 1) * n)
+        o, lse = mha_fwd(tq[:, rows].contiguous(), tk, tv, scale,
+                         return_lse=True)
+        assert o.shape == (2, n, D) and lse.shape == (2, n)
+        err = np.abs(o.float().numpy() - o_jax[:, rows]).max()
+        assert err <= 2.0 ** -8 * np.abs(o_jax).max(), err
+        np.testing.assert_allclose(lse.numpy(), lse_full[:, rows].numpy(),
+                                   rtol=1e-5)
+        dq, dk, dv = mha_bwd(tq[:, rows].contiguous(), tk, tv, o,
+                             tdo[:, rows].contiguous(), scale, lse,
+                             dkv_f32=True)
+        assert dq.dtype == torch.bfloat16
+        assert dk.dtype == dv.dtype == torch.float32
+        assert dk.shape == dv.shape == (2, S, D)
+        err = np.abs(dq.float().numpy() - dq_j[:, rows]).max()
+        assert err <= 2.0 ** -7 * np.abs(dq_j).max(), ("dq", r, err)
+        dk_sum += dk
+        dv_sum += dv
+    for name, ours, ref in (("dk", dk_sum, dk_j), ("dv", dv_sum, dv_j)):
+        err = np.abs(ours.to(torch.bfloat16).float().numpy() - ref).max()
+        assert err <= 2.0 ** -7 * np.abs(ref).max(), (name, err)
+
+
+def test_kernel_takes_unequal_lengths():
+    """K1 and K1ᵇ take Sq queries, a multiple of 64, against Sk keys, a
+    multiple of 128: the big preset's 8² sites at vp 4 are Sq 64, Sk 256."""
+    for Sq, Sk, want in ((64, 256, True), (128, 256, True), (192, 256, True),
+                         (256, 256, True), (32, 256, False),
+                         (64, 192, False), (0, 256, False)):
+        assert kernel_takes(torch.bfloat16, Sq, Sk, 64, 0.125) == want
+    assert not kernel_takes(torch.float32, 64, 256, 64, 0.125)
+
+
+def test_mha_bwd_reference_f32_partials_are_the_unrounded_dkv():
+    """``dkv_f32``: dK and dV unrounded, f32; their bf16 rounding is the
+    default call's dK and dV, and dq is the same."""
+    rng = np.random.default_rng(9)
+    q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (2, s, 32)),
+                                   dtype=torch.float32).to(torch.bfloat16)
+                   for s in (64, 256, 256, 64))
+    o, lse = mha_fwd(q, k, v, 32 ** -0.5, return_lse=True)
+    dq, dk, dv = mha_bwd_reference(q, k, v, o, do, 32 ** -0.5, lse)
+    dq32, dk32, dv32 = mha_bwd_reference(q, k, v, o, do, 32 ** -0.5, lse,
+                                         dkv_f32=True)
+    assert dk32.dtype == dv32.dtype == torch.float32
+    assert torch.equal(dq32, dq)
+    assert torch.equal(dk32.to(torch.bfloat16), dk)
+    assert torch.equal(dv32.to(torch.bfloat16), dv)

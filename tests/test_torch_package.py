@@ -54,7 +54,9 @@ def test_port_sources_have_no_jax_import():
                      re.M)
     files = list((ROOT / "lgm_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
-              ROOT / "scripts" / "eval_convert_quality_torch.py"]
+              ROOT / "scripts" / "eval_convert_quality_torch.py",
+              ROOT / "scripts" / "time_attention.py",
+              ROOT / "scripts" / "vp_activation_bytes.py"]
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
 

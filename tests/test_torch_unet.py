@@ -172,7 +172,7 @@ def test_attention_gate_routes_by_dtype_and_shape(dtype, S, D, route,
     """The gate sends attention to mha (K1/K1ᵇ on the card) exactly where
     K1 takes it, and to the dense plain path elsewhere; on a CPU tensor
     the same choice as on the card."""
-    assert kernel_takes(dtype, S, D, D ** -0.5) == (route == "kernel")
+    assert kernel_takes(dtype, S, S, D, D ** -0.5) == (route == "kernel")
     called = []
     monkeypatch.setattr(unet_mod, "mha",
                         lambda *a: called.append("kernel") or a[0])
@@ -216,7 +216,7 @@ def test_dense_attention_matches_jax(dtype, B, S, H, D, tol):
             B * H, S, D).contiguous().requires_grad_()
 
     tq, tk, tv = (heads(x) for x in (q, k, v))
-    assert not kernel_takes(tdt, S, D, D ** -0.5)
+    assert not kernel_takes(tdt, S, S, D, D ** -0.5)
     o = attention(tq, tk, tv, D ** -0.5)
     assert o.dtype == tdt
     o.float().backward(heads(g).detach().float())
