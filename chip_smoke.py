@@ -382,6 +382,33 @@ def check_k1(q, k, v, scale, what):
     return o, lse, err, tol, lse_err, lse_tol
 
 
+def route_of(wrapper, run):
+    """Call ``run`` and return (the route, ``run``'s result): the one
+    design (``ops/mha.py::route``) that every launch of ``wrapper``
+    (``mha_fwd`` or ``mha_bwd``) in it took, read from the wrapper's
+    per-route counts."""
+    before = dict(wrapper.route_launches)
+    out = run()
+    taken = sorted(r for r, n in wrapper.route_launches.items()
+                   if n != before[r])
+    if len(taken) != 1:
+        raise AssertionError(f"{wrapper.__name__}: routes {taken} in one "
+                             f"check")
+    return taken[0], out
+
+
+def k1_route_launches(since=None) -> dict:
+    """K1's and K1ᵇ's launches by route (``mha_fwd.route_launches``,
+    ``mha_bwd.route_launches``), less a reading ``since`` where given."""
+    from lgm_tpu_torch.ops.mha import mha_bwd, mha_fwd
+
+    now = {fn.__name__: dict(fn.route_launches) for fn in (mha_fwd, mha_bwd)}
+    if since is None:
+        return now
+    return {name: {r: n - since[name][r] for r, n in counts.items()}
+            for name, counts in now.items()}
+
+
 def check_k1b(q, k, v, o, do, scale, lse, what):
     """K1ᵇ vs its plain version, both fed K1's row statistic ``lse``;
     returns the max abs error over dq, dk, dv and the tolerance it was
@@ -562,8 +589,15 @@ def phase_build():
     sass = {name: _build.sass_counts(libs[name])
             for name in ("composite_fwd", "composite_bwd", "tiled_fwd",
                          "tiled_bwd")}
+    # The wgmma kernels' registers and spills (none allowed).
+    wgmma = {kernel: report for name in ("mha_fwd_wgmma", "mha_bwd_wgmma")
+             for kernel, report in ptxas[name].items()}
+    spilled = {k: r for k, r in wgmma.items()
+               if r["spill_stores"] or r["spill_loads"] or r["stack_frame"]}
+    if spilled:
+        raise AssertionError(f"wgmma kernels spill: {spilled}")
     emit("build", seconds=seconds, kernels=sorted(libs), ptxas=ptxas,
-         sass=sass)
+         sass=sass, wgmma_ptxas=wgmma)
     return ptxas
 
 
@@ -588,8 +622,8 @@ def phase_k1(dev):
                                        dtype=torch.float32, device=dev)
                        .to(torch.bfloat16) for _ in range(3))
             scale = float(D) ** -0.5
-            _, _, err, tol, lse_err, lse_tol = check_k1(q, k, v, scale,
-                                                        f"{BH}x{S}x{D}")
+            route, (_, _, err, tol, lse_err, lse_tol) = route_of(
+                mha_fwd, lambda: check_k1(q, k, v, scale, f"{BH}x{S}x{D}"))
             with torch.inference_mode():
                 # Device times (K1_LAUNCHES back to back); in training the
                 # kernel writes the statistic too.
@@ -601,7 +635,7 @@ def phase_k1(dev):
                     q[None], k[None], v[None], scale=scale),
                     launches=K1_LAUNCHES)
             b_ms, b_by = k1_bound(BH, S, S, D)
-            emit("k1", per=per, shape=[BH, S, D], sites=sites,
+            emit("k1", per=per, shape=[BH, S, D], sites=sites, route=route,
                  max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
                  lse_tol=lse_tol, kernel_ms=ms, plain_ms=plain_ms,
                  library_ms=sdpa_ms, kernel_over_library=ms / sdpa_ms,
@@ -651,8 +685,7 @@ def phase_vp_kernels(dev):
     import torch
     import torch.nn.functional as F
 
-    from lgm_tpu_torch.ops.mha import (_DKV_BLOCKS, _DQ_BLOCKS, _FWD_BLOCKS,
-                                       _sms, block_shape, mha_bwd,
+    from lgm_tpu_torch.ops.mha import (_sms, launch_plan, mha_bwd,
                                        mha_bwd_reference, mha_fwd,
                                        mha_reference)
 
@@ -667,18 +700,28 @@ def phase_vp_kernels(dev):
         n = S // vp
         worst = dict(fwd=0.0, fwd_tol=0.0, lse=0.0, bwd=0.0, bwd_tol=0.0)
         rows_equal = dict(o=True, lse=True, dq=True)
+        # The route of every call, the full one's and each rank's: one.
+        taken = set()
         with torch.no_grad():
-            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
-            dq, dk, dv = mha_bwd(q, k, v, o, do, scale, lse)
+            route, (o, lse) = route_of(mha_fwd, lambda: mha_fwd(
+                q, k, v, scale, return_lse=True))
+            taken.add(route)
+            route, (dq, dk, dv) = route_of(mha_bwd, lambda: mha_bwd(
+                q, k, v, o, do, scale, lse))
+            taken.add(route)
             dk_sum = torch.zeros(BH, S, D, device=dev)
             dv_sum = torch.zeros(BH, S, D, device=dev)
             for r in range(vp):
                 rows = slice(r * n, (r + 1) * n)
                 q_r, do_r = q[:, rows].contiguous(), do[:, rows].contiguous()
-                o_r, lse_r, err, tol, lse_err, _ = check_k1(
-                    q_r, k, v, scale, f"vp{vp} rank {r} {BH}x{n}x{S}x{D}")
-                ours = mha_bwd(q_r, k, v, o_r, do_r, scale, lse_r,
-                               dkv_f32=True)
+                route, (o_r, lse_r, err, tol, lse_err, _) = route_of(
+                    mha_fwd, lambda: check_k1(
+                        q_r, k, v, scale,
+                        f"vp{vp} rank {r} {BH}x{n}x{S}x{D}"))
+                taken.add(route)
+                route, ours = route_of(mha_bwd, lambda: mha_bwd(
+                    q_r, k, v, o_r, do_r, scale, lse_r, dkv_f32=True))
+                taken.add(route)
                 ref = mha_bwd_reference(q_r, k, v, o_r, do_r, scale, lse_r,
                                         dkv_f32=True)
                 torch.cuda.synchronize()
@@ -708,9 +751,11 @@ def phase_vp_kernels(dev):
                                  - dk.float()).abs().max()),
                           float((dv_sum.to(torch.bfloat16).float()
                                  - dv.float()).abs().max()))
-            if not (all(rows_equal.values()) and dkv_held <= 1.0):
+            if not (all(rows_equal.values()) and dkv_held <= 1.0
+                    and len(taken) == 1):
                 raise AssertionError(
-                    f"vp{vp} {BH}x{S}x{D}: rows bit-equal {rows_equal}, "
+                    f"vp{vp} {BH}x{S}x{D}: routes {taken}, rows bit-equal "
+                    f"{rows_equal}, "
                     f"dK/dV sum {dkv_held} bf16 steps (with the f32 "
                     f"regrouping's allowance) from the full call")
             q_r, do_r = q[:, :n].contiguous(), do[:, :n].contiguous()
@@ -734,15 +779,14 @@ def phase_vp_kernels(dev):
             out, (qs, ks, vs), do_r[None], retain_graph=True),
             launches=K1_LAUNCHES)
         del out, qs, ks, vs
-        sms = _sms(dev)
+        plan = launch_plan(BH, n, S, D, _sms(dev))
         f_bound, f_by = k1_bound(BH, n, S, D)
         bw_bound, bw_by = k1b_bound(BH, n, S, D, dkv_bytes=4)
         common = dict(shape=[BH, S, D], vp=vp, Sq=n, Sk=S)
         emit("vp_kernels", **common,
-             blocks=dict(fwd=block_shape(_FWD_BLOCKS[D], BH, n, sms),
-                         dq=block_shape(_DQ_BLOCKS[D], BH, n, sms),
-                         dkv=block_shape(_DKV_BLOCKS[D], BH, S, sms),
-                         dkv_query_tile=128 if n % 128 == 0 else 64),
+             route=taken.pop(), blocks=dict(
+                 fwd=plan["fwd"], dq=plan["dq"], dkv=plan["dkv"],
+                 dkv_query_tile=128 if n % 128 == 0 else 64),
              k1_max_abs_err=worst["fwd"], k1_tol=worst["fwd_tol"],
              lse_max_abs_err=worst["lse"], k1b_max_abs_err=worst["bwd"],
              k1b_tol=worst["bwd_tol"], rows_bit_equal=rows_equal,
@@ -866,8 +910,8 @@ def phase_k1_bwd(dev):
         scale = float(D) ** -0.5
         with torch.no_grad():
             o, lse = mha_fwd(q, k, v, scale, return_lse=True)
-            err, tol = check_k1b(q, k, v, o, do, scale, lse,
-                                 f"{BH}x{S}x{D}")
+            route, (err, tol) = route_of(mha_bwd, lambda: check_k1b(
+                q, k, v, o, do, scale, lse, f"{BH}x{S}x{D}"))
             ms = cuda_ms(lambda: mha_bwd(q, k, v, o, do, scale, lse),
                          launches=K1_LAUNCHES)
             plain_ms = cuda_ms(lambda: mha_bwd_reference(q, k, v, o, do,
@@ -880,7 +924,8 @@ def phase_k1_bwd(dev):
             launches=K1_LAUNCHES)
         del out, qs, ks, vs
         b_ms, b_by = k1b_bound(BH, S, S, D)
-        emit("k1_bwd", shape=[BH, S, D], sites=sites, max_abs_err=err,
+        emit("k1_bwd", shape=[BH, S, D], sites=sites, route=route,
+             max_abs_err=err,
              tol=tol, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
              kernel_over_library=ms / lib_ms, bound_us=b_ms * 1e3,
              bound_by=b_by)
@@ -1708,8 +1753,8 @@ def phase_k1_diffusion(dev):
     import torch
     import torch.nn.functional as F
 
-    from lgm_tpu_torch.ops.mha import (_FWD_BLOCKS, _sms, block_shape,
-                                       mha_fwd, mha_reference)
+    from lgm_tpu_torch.ops.mha import (_sms, launch_plan, mha_fwd,
+                                       mha_reference)
 
     out = {}
     for model, (BH, S, D) in K1_DIFFUSION_SHAPES.items():
@@ -1718,7 +1763,8 @@ def phase_k1_diffusion(dev):
                                    dtype=torch.float32, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
         scale = float(D) ** -0.5
-        o, lse, err, tol, lse_err, lse_tol = check_k1(q, k, v, scale, model)
+        route, (o, lse, err, tol, lse_err, lse_tol) = route_of(
+            mha_fwd, lambda: check_k1(q, k, v, scale, model))
         with torch.inference_mode():
             o2, lse2 = mha_fwd(q, k, v, scale, return_lse=True)
             torch.cuda.synchronize()
@@ -1732,15 +1778,18 @@ def phase_k1_diffusion(dev):
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale),
                 launches=K1_LAUNCHES)
-        mt, nw = block_shape(_FWD_BLOCKS[D], BH, S, _sms(dev))
+        # The block: consumer warpgroups of 64 rows (wgmma) or (m-tiles,
+        # warps) of 16-row m-tiles (mma).
+        block = launch_plan(BH, S, S, D, _sms(dev))["fwd"]
+        rows = 64 * block if route == "wgmma" else 16 * block[0] * block[1]
         b_ms, b_by = k1_bound(BH, S, S, D)
         # Derived, not counted: a 30-step image's launches (the paths
         # count theirs in phases diffusion_text and image_to_3d).
         per_image = DIFFUSION_SITES * N_DIFFUSION_STEPS
-        emit("k1_diffusion", model=model, shape=[BH, S, D],
+        emit("k1_diffusion", model=model, shape=[BH, S, D], route=route,
              sites_per_unet_call=DIFFUSION_SITES,
-             derived_launches_per_image=per_image, block_shape=[mt, nw],
-             blocks=S // (16 * mt * nw) * BH, max_abs_err=err, tol=tol,
+             derived_launches_per_image=per_image, block_shape=block,
+             blocks=S // rows * BH, max_abs_err=err, tol=tol,
              lse_max_abs_err=lse_err, lse_tol=lse_tol, bitwise_repeat=True,
              kernel_ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
              kernel_over_library=ms / sdpa_ms, bound_us=b_ms * 1e3,
@@ -1774,9 +1823,17 @@ def phase_k1_bwd_diffusion(dev):
                                        dtype=torch.float32, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
         scale = float(D) ** -0.5
-        o, lse, err, tol, lse_err, lse_tol = check_k1(q, k, v, scale, model)
+        route, (o, lse, err, tol, lse_err, lse_tol) = route_of(
+            mha_fwd, lambda: check_k1(q, k, v, scale, model))
         with torch.no_grad():
-            b_err, b_tol = check_k1b(q, k, v, o, do, scale, lse, model)
+            b_route, (b_err, b_tol) = route_of(mha_bwd, lambda: check_k1b(
+                q, k, v, o, do, scale, lse, model))
+            # Two K1ᵇ runs give the same bits.
+            first = mha_bwd(q, k, v, o, do, scale, lse)
+            second = mha_bwd(q, k, v, o, do, scale, lse)
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"K1ᵇ {model}: two runs differ")
+            del first, second
             ms = cuda_ms(lambda: mha_fwd(q, k, v, scale, return_lse=True),
                          launches=K1_LAUNCHES)
             plain_ms = cuda_ms(lambda: mha_reference(q, k, v, scale,
@@ -1798,7 +1855,9 @@ def phase_k1_bwd_diffusion(dev):
         f_bound, f_by = k1_bound(BH, S, S, D)
         b_bound, b_by = k1b_bound(BH, S, S, D)
         emit("k1_bwd_diffusion", model=model, shape=[BH, S, D],
-             sites_per_step=DIFFUSION_SITES, k1_max_abs_err=err, k1_tol=tol,
+             sites_per_step=DIFFUSION_SITES, k1_route=route,
+             k1b_route=b_route, k1b_bitwise_repeat=True,
+             k1_max_abs_err=err, k1_tol=tol,
              k1_lse_max_abs_err=lse_err, k1_lse_tol=lse_tol, k1_ms=ms,
              k1_plain_ms=plain_ms, k1_library_ms=sdpa_ms,
              k1_over_library=ms / sdpa_ms, k1_bound_us=f_bound * 1e3,
@@ -2023,6 +2082,7 @@ def phase_image_to_3d(dev, model):
         """image -> views -> LGM -> .ply and orbit, counted and timed."""
         mha_fwd.launches = 0
         fs.composite_fwd.launches = 0
+        k1_before = k1_route_launches()
         with route_counts(mv) as routes, stage_clock(pipe) as times, \
                 mock.patch.object(pipe.unet, "forward", spy_unet), \
                 mock.patch.object(mv, "mha", spy_mha(mv.mha)):
@@ -2035,11 +2095,14 @@ def phase_image_to_3d(dev, model):
             times["image_to_3d_s"] = time.perf_counter() - t0
         launches = {"mha_fwd": mha_fwd.launches,
                     "composite_fwd": fs.composite_fwd.launches}
+        k1_routes = k1_route_launches(k1_before)["mha_fwd"]
         if launches != expected or routes["kernel"] != (
-                DIFFUSION_SITES * N_DIFFUSION_STEPS):
+                DIFFUSION_SITES * N_DIFFUSION_STEPS) or k1_routes[
+                    "wgmma"] < DIFFUSION_SITES * N_DIFFUSION_STEPS:
             raise AssertionError(f"launches {launches}, expected "
                                  f"{expected}; diffusion attention routes "
-                                 f"{routes}")
+                                 f"{routes}; K1 routes {k1_routes}")
+        launches["mha_fwd_routes"] = k1_routes
         gs = res["gaussians"]
         if not (views.shape == (4, opt.input_size, opt.input_size, 3)
                 and np.isfinite(views).all() and views.min() >= 0.0
@@ -2185,6 +2248,7 @@ def phase_diffusion_train(dev, name):
 
     for fn in counters:
         fn.launches = 0
+    k1_before = k1_route_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     with route_counts(mv) as routes, \
             mock.patch.object(trainer, "prepare_batch", timed_prepare):
@@ -2213,6 +2277,10 @@ def phase_diffusion_train(dev, name):
                                     zip(counters, before)])
             rec["loss"].append(float(m["loss"]))
             rec["gnorm"].append(float(m["gnorm"]))
+    k1_routes = k1_route_launches(k1_before)
+    if (k1_routes["mha_fwd"]["mma"] or k1_routes["mha_bwd"]["mma"]):
+        raise AssertionError(f"{name}: K1/K1ᵇ routes {k1_routes} (the "
+                             f"level-0 sites take wgmma)")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     per_step = [DIFFUSION_SITES, DIFFUSION_SITES, 0]
     per_batch = DIFFUSION_BATCH * DIFFUSION_FRAMES
@@ -2306,6 +2374,7 @@ def phase_diffusion_train(dev, name):
          loss_first_batch_after=loss_k1, loss_first_batch_dense=loss_dense,
          launches_per_step=dict(zip(("mha_fwd", "mha_bwd"), per_step)),
          composite_fwd_per_batch=per_batch, attention_routes=routes,
+         k1_route_launches=k1_routes,
          site_shape=site_shape, k1_max_abs_err=k1_err,
          k1_bwd_max_abs_err=k1b_err, k1_bwd_tol=k1b_tol,
          k2_shape=k2_shape, k2_max_abs_err=k2_err, k2_atol=K2_ATOL,
@@ -3509,6 +3578,10 @@ def main() -> int:
     kernels = [
         dict(name="mha_fwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_fwd.cu",
+             sources_by_route=dict(
+                 mma="lgm_tpu_torch/ops/csrc/mha_fwd.cu",
+                 wgmma="lgm_tpu_torch/ops/csrc/mha_fwd_wgmma.cu"),
+             image_to_3d_route_launches=image_launches["mha_fwd_routes"],
              replaces="lgm_tpu/ops/mha.py:42", launches=launches["mha_fwd"],
              infer_launches=infer_launches["mha_fwd"],
              diffusion_text_launches=text_launches["mha_fwd"],
@@ -3535,6 +3608,9 @@ def main() -> int:
              **{k: k2[k] for k in keys}),
         dict(name="mha_bwd", route="cuda",
              source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",
+             sources_by_route=dict(
+                 mma="lgm_tpu_torch/ops/csrc/mha_bwd.cu",
+                 wgmma="lgm_tpu_torch/ops/csrc/mha_bwd_wgmma.cu"),
              replaces="lgm_tpu/ops/mha.py:61", launches=launches["mha_bwd"],
              diffusion_shapes_bwd=k1b_train_shapes, vp_shapes=vp_bwd,
              **{k: k1b[k] for k in keys}),

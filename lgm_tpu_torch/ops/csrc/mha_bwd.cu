@@ -46,8 +46,8 @@
 // view-sharded U-Net, where each vp rank holds the queries of its own
 // views and the keys and values of all of them. (a) runs over Sq rows and
 // streams Sk keys; (b) runs over Sk keys and streams Sq queries, 128 a
-// tile, or 64 where Sq is not a multiple of 128 (Sq = 64 at the big
-// preset's 8^2 sites at vp 4): a template parameter, so the 128-query
+// tile, or 64 where Sq is not a multiple of 128 (Sq 64 or 192, which the
+// wrapper takes): a template parameter, so the 128-query
 // kernel is the one built before. The tile size changes no sum: (b)
 // accumulates over 16-query chunks in the same order either way. A rank's
 // dK and dV are partial sums over its own queries, which the vp ranks then
@@ -381,7 +381,8 @@ extern "C" {
 // q, o, dout, dq: [BH, Sq, D] and k, v: [BH, Sk, D] contiguous bf16,
 // 16-byte aligned; dk, dv: [BH, Sk, D], bf16, or f32 where dkv_f32 is not
 // 0; lse (K1's statistic): [BH, Sq] f32; drow: [BH, Sq] f32 scratch; all
-// on device ``device``. D in {32, 64}; Sk a multiple of 128 and of the
+// on device ``device``. D = 32 (ops/mha.py routes D = 64 to
+// mha_bwd_wgmma.cu); Sk a multiple of 128 and of the
 // dK/dV kernel's block rows 16 * mt_kv * nw_kv; Sq a multiple of 64 and of
 // the dq kernel's block rows 16 * mt_q * nw_q; scale > 0; (mt_q, nw_q) and
 // (mt_kv, nw_kv) each in {(2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)}.
@@ -408,9 +409,8 @@ int mha_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                dkv_f32 ? static_cast<float*>(dv) : nullptr,
                static_cast<float*>(drow),
                BH, Sq, Sk, scale, static_cast<cudaStream_t>(stream), device};
-  if (D == 32) return launch_d<32>(a, mt_q, nw_q, mt_kv, nw_kv);
-  if (D == 64) return launch_d<64>(a, mt_q, nw_q, mt_kv, nw_kv);
-  return (int)cudaErrorInvalidValue;
+  if (D != 32) return (int)cudaErrorInvalidValue;
+  return launch_d<32>(a, mt_q, nw_q, mt_kv, nw_kv);
 }
 
 const char* kernel_error_name(int err) {

@@ -20,11 +20,10 @@
 //
 // The TPU called its kernel only where S >= 2048 (lgm_tpu/models/unet.py:
 // 61-62): that gate is a VMEM/HBM decision of that chip. The port calls
-// this kernel at every MVAttention site: S = 4096/D = 32, S = 1024/D = 64
-// and S = 256/D = 64 at the big preset. The diffusion U-Net
-// (diffusion/mv_unet.py) calls it where lgm_tpu's K-resident gate would:
-// its level-0 joint self-attention, S = 4096 (MVDream) or 5120
-// (ImageDream), D = 64, BH = 10.
+// K1 at every MVAttention site; ops/mha.py routes D = 32 (S = 4096 at the
+// big preset) here and D = 64 (LGM's S 1024 and 256 sites, the diffusion
+// U-Net's level 0) to mha_fwd_wgmma.cu, so this design is built at D = 32
+// only.
 //
 // What bounds it on an H100: BH * S^2 exps on the SFUs (16 per clock per
 // SM), about 65 us at S = 4096, BH = 16, against ~35 us of tensor-core
@@ -175,10 +174,9 @@ mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store_rows<D>(o + base, r, t, acc[mt], 1.f / l0, 1.f / l1);
     if (lse != nullptr && t == 0) {
       // Rounded adds and multiplies, never contracted into an FMA with
-      // log2f's last product: nvcc contracted them in some block shapes
-      // (D = 64 at one and two warps) and not in others, so a row's L
-      // depended on the block, and a vp rank's rows were not the
-      // full-length call's.
+      // log2f's last product: nvcc contracted them in some instantiations
+      // and not in others, so a row's L depended on the block, and a vp
+      // rank's rows were not the full-length call's.
       float* lr = lse + (size_t)blockIdx.y * Sq + r;
       lr[0] = __fmul_rn(__fadd_rn(m2[mt][0], log2f(l0)), kLn2);
       lr[8] = __fmul_rn(__fadd_rn(m2[mt][1], log2f(l1)), kLn2);
@@ -222,7 +220,7 @@ extern "C" {
 
 // q, o: [BH, Sq, D] and k, v: [BH, Sk, D], contiguous bf16 on device
 // ``device``, 16-byte aligned; lse: [BH, Sq] f32 or null (then not
-// written). D in {32, 64}; Sk a multiple of 128; Sq a multiple of the
+// written). D = 32; Sk a multiple of 128; Sq a multiple of the
 // block's rows 16 * mt * nw; scale > 0; (mt, nw)
 // in {(2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)}. Launches on
 // ``stream``; returns cudaGetLastError().
@@ -239,13 +237,9 @@ int mha_fwd_bf16(const void* q, const void* k, const void* v, void* o,
   const auto* vv = static_cast<const bf16*>(v);
   auto* oo = static_cast<bf16*>(o);
   auto* ll = static_cast<float*>(lse);
-  if (D == 32)
-    return launch_d<32>(qq, kk, vv, oo, ll, BH, Sq, Sk, scale, mt, nw, st,
-                        device);
-  if (D == 64)
-    return launch_d<64>(qq, kk, vv, oo, ll, BH, Sq, Sk, scale, mt, nw, st,
-                        device);
-  return (int)cudaErrorInvalidValue;
+  if (D != 32) return (int)cudaErrorInvalidValue;
+  return launch_d<32>(qq, kk, vv, oo, ll, BH, Sq, Sk, scale, mt, nw, st,
+                      device);
 }
 
 const char* kernel_error_name(int err) {

@@ -8,13 +8,15 @@ all keys, no online rescaling), P rounded to the input dtype before P.V,
 f32 accumulation, output in the input dtype. With ``return_lse`` it also
 returns the f32 logsumexp L = m + log(l) of each row's scaled logits (m
 the row max, l the f32 sum of the unrounded P), ``[BH, Sq]``. On a CUDA
-tensor it launches the hand-written kernel in ``csrc/mha_fwd.cu`` (bf16,
-D in {32, 64}, Sk a multiple of 128, Sq of 64, scale > 0) or raises; on
-a CPU tensor it runs ``mha_reference``, the same function in plain
-PyTorch. Sq differs from Sk under the view-sharded U-Net, where a vp rank
-holds the queries of its own views and the keys of all of them
-(``mha_views``); each row is then bit for bit the row of the Sq = Sk
-call, since a row's arithmetic reads only its own q row and every key.
+tensor it launches a hand-written kernel (bf16, D in {32, 64}, Sk a
+multiple of 128, Sq of 64, scale > 0) or raises: by ``route``, at D = 32
+``csrc/mha_fwd.cu`` (mma.sync), at D = 64 ``csrc/mha_fwd_wgmma.cu``
+(wgmma fed by TMA); on a CPU tensor it runs
+``mha_reference``, the same function in plain PyTorch. Sq differs from
+Sk under the view-sharded U-Net, where a vp rank holds the queries of its
+own views and the keys of all of them (``mha_views``); each row is then
+bit for bit the row of the Sq = Sk call, since a row's arithmetic reads
+only its own q row and every key, and the route reads only D.
 
 ``mha_bwd`` is the port of the backward (``_bwd_kernel`` via
 ``_mha_bwd``): from q, k, v, o, the forward's L and the cotangent dO it
@@ -23,7 +25,8 @@ dO, dS and P rounded to the input dtype before their products, and
 returns dq = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO in the input dtype
 (dK and dV in f32 with ``dkv_f32``: a vp rank's partial sums, summed over
 the ranks before one rounding). On a CUDA tensor it launches
-``csrc/mha_bwd.cu``; on a CPU tensor it runs ``mha_bwd_reference``.
+``csrc/mha_bwd.cu`` or, by the same route, ``csrc/mha_bwd_wgmma.cu``; on
+a CPU tensor it runs ``mha_bwd_reference``.
 ``mha`` joins the two in an autograd Function, and ``mha_views`` does so
 for a vp rank, gathering K and V over the group and summing their
 gradients back. Each kernel's design note and bound are in its source.
@@ -68,22 +71,81 @@ _BWD_SIGNATURES = {
         ctypes.c_int,
     ),
 }
+_WGMMA_SIGNATURES = {
+    "mha_fwd_wgmma_bf16": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
+}
+_WGMMA_BWD_SIGNATURES = {
+    "mha_bwd_wgmma_bf16": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
+}
 _TILE = 128  # keys per staged tile; Sk must be a multiple
 # Queries per staged tile of the dK/dV kernel where Sq is not a multiple
 # of _TILE; Sq must be a multiple.
 _Q_TILE = 64
-# Block shapes each kernel is built for, as (m-tiles of 16 rows per warp,
-# warps per block), and each kernel's own list by D in order of preference,
-# as ``scripts/torch_mha_blocks.py`` measured them. At D = 64 two m-tiles
-# spill registers: a few in the dK/dV kernel (still the fastest there),
-# more in the dq kernel.
+# Block shapes the mma kernels are built for, as (m-tiles of 16 rows per
+# warp, warps per block), and each kernel's own list in order of
+# preference, as ``scripts/torch_mha_blocks.py`` measured them at D = 32.
 _BUILT = ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1))
-_FWD_BLOCKS = {32: ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1)),
-               64: ((2, 4), (1, 8), (1, 4), (1, 2), (1, 1))}
-_DQ_BLOCKS = {32: ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1)),
-              64: ((1, 8), (1, 4), (1, 2), (1, 1))}
-_DKV_BLOCKS = {32: ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1)),
-               64: ((2, 4), (1, 8), (1, 4), (1, 2), (1, 1))}
+_FWD_BLOCKS = ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1))
+_DQ_BLOCKS = ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1))
+_DKV_BLOCKS = ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1))
+
+
+# The two designs of each kernel: "mma" (mma.sync fed by cp.async,
+# ``csrc/mha_fwd.cu`` / ``mha_bwd.cu``, built at D = 32) and "wgmma" (wgmma
+# fed by TMA, ``csrc/mha_fwd_wgmma.cu`` / ``mha_bwd_wgmma.cu``, D = 64).
+ROUTES = ("mma", "wgmma")
+
+
+def route(D: int) -> str:
+    """The design K1 and K1ᵇ take at head dim ``D``: "wgmma" at D = 64,
+    "mma" at D = 32. It reads neither length, so a vp rank (Sq = S/vp) and
+    the full call run the same arithmetic.
+
+    At every D-64 row the port runs, wgmma is faster than the mma design
+    or inside its spread. Device ms, mma → wgmma, medians of 10 runs of
+    ``scripts/time_attention.py`` each, in turns in one call on an NVIDIA
+    H100 80GB HBM3 at 700 W: K1 S 5120 BH 20 0.764 → 0.579, S 4096 BH 10
+    0.288 → 0.204, S 1024 BH 32 0.051 → 0.043; K1ᵇ S 5120 BH 20 1.450 →
+    1.175, S 1024 BH 32 0.105 → 0.095. At S 256 the host's enqueue bounds
+    both designs (20-45 µs a call either way): over the six K1 and five
+    K1ᵇ rows there, B = 1, bs2 and a vp rank's, K1 0.030 → 0.025 and K1ᵇ
+    0.047 → 0.046."""
+    return "wgmma" if D == 64 else "mma"
+
+
+def warpgroups(BH: int, rows: int, sms: int) -> int:
+    """Consumer warpgroups (64 rows each) a block of the wgmma kernels over
+    ``rows`` (queries in K1 and the dq kernel, keys in the dK/dV kernel),
+    one block an SM: 2 where 128-row blocks divide the rows and the 64-row
+    units outnumber the ``sms`` multiprocessors, else 1 (more SMs busy)."""
+    return 2 if rows % 128 == 0 and rows // 64 * BH > sms else 1
+
+
+def _block(kernel: str, r: str, BH: int, rows: int, sms: int):
+    """The block of ``kernel`` ("fwd", "dq" or "dkv") over ``rows`` on
+    route ``r``: consumer warpgroups (wgmma) or (m-tiles, warps) (mma)."""
+    if r == "wgmma":
+        return warpgroups(BH, rows, sms)
+    blocks = {"fwd": _FWD_BLOCKS, "dq": _DQ_BLOCKS, "dkv": _DKV_BLOCKS}
+    return block_shape(blocks[kernel], BH, rows, sms)
+
+
+def launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int) -> dict:
+    """How K1 and K1ᵇ launch at this shape on ``sms`` multiprocessors: the
+    ``route``, and the block of each kernel (K1 ``fwd``, K1ᵇ's ``dq`` and
+    ``dkv``)."""
+    r = route(D)
+    return dict(route=r, fwd=_block("fwd", r, BH, Sq, sms),
+                dq=_block("dq", r, BH, Sq, sms),
+                dkv=_block("dkv", r, BH, Sk, sms))
 
 
 def block_shape(blocks, BH: int, S: int, sms: int):
@@ -206,18 +268,27 @@ def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = (torch.empty(BH, Sq, dtype=torch.float32, device=dev)
            if return_lse else None)
-    mt, nw = block_shape(_FWD_BLOCKS[D], BH, Sq, _sms(dev))
-    lib = _build.load("mha_fwd", _SIGNATURES)
-    err = lib.mha_fwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(), BH, Sq, Sk, D, float(scale),
-        mt, nw, torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), BH, Sq, Sk, D,
+            float(scale))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    r = route(D)
+    block = _block("fwd", r, BH, Sq, _sms(dev))
+    if r == "wgmma":
+        lib = _build.load("mha_fwd_wgmma", _WGMMA_SIGNATURES)
+        err = lib.mha_fwd_wgmma_bf16(*args, block, stream, dev.index)
+    else:
+        lib = _build.load("mha_fwd", _SIGNATURES)
+        err = lib.mha_fwd_bf16(*args, *block, stream, dev.index)
     _build.check(lib, err, "mha_fwd")
     mha_fwd.launches += 1
+    mha_fwd.route_launches[r] += 1
     return (o, lse) if return_lse else o
 
 
 mha_fwd.launches = 0
+# Launches by route (``route``): which design ran.
+mha_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def mha_bwd(q, k, v, o, do, scale: float, lse, dkv_f32: bool = False):
@@ -238,22 +309,30 @@ def mha_bwd(q, k, v, o, do, scale: float, lse, dkv_f32: bool = False):
               for _ in range(2))
     # rowsum(dO∘O), written by the dq kernel and read by the dK/dV kernel.
     drow = torch.empty(BH, Sq, dtype=torch.float32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), drow.data_ptr(), BH, Sq, Sk, D, float(scale))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    r = route(D)
     sms = _sms(dev)
-    mt_q, nw_q = block_shape(_DQ_BLOCKS[D], BH, Sq, sms)
-    mt_kv, nw_kv = block_shape(_DKV_BLOCKS[D], BH, Sk, sms)
-    lib = _build.load("mha_bwd", _BWD_SIGNATURES)
-    err = lib.mha_bwd_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), drow.data_ptr(), BH, Sq, Sk, D, float(scale), mt_q,
-        nw_q, mt_kv, nw_kv, int(dkv_f32),
-        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    dq_block = _block("dq", r, BH, Sq, sms)
+    dkv_block = _block("dkv", r, BH, Sk, sms)
+    if r == "wgmma":
+        lib = _build.load("mha_bwd_wgmma", _WGMMA_BWD_SIGNATURES)
+        err = lib.mha_bwd_wgmma_bf16(*args, dq_block, dkv_block,
+                                     int(dkv_f32), stream, dev.index)
+    else:
+        lib = _build.load("mha_bwd", _BWD_SIGNATURES)
+        err = lib.mha_bwd_bf16(*args, *dq_block, *dkv_block, int(dkv_f32),
+                               stream, dev.index)
     _build.check(lib, err, "mha_bwd")
     mha_bwd.launches += 1
+    mha_bwd.route_launches[r] += 1
     return dq, dk, dv
 
 
 mha_bwd.launches = 0
+mha_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class _MHA(torch.autograd.Function):

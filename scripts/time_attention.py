@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""Device times of K1 and K1ᵇ at LGM big's attention sites, for any
-checkout: ``chip_smoke.py``'s phases ``k1`` (B = 1 and bs2, with the row
-statistic) and ``k1_bwd`` (bs2), run from the tree at ``--root`` with
-that tree's kernels, then one summary line. To compare two commits on
-one card, run it for each in one call, in turns (old, new, new, old), the
-older one an unpacked ``git archive`` in a directory ``.gitignore``
-lists:
+"""Device times of K1 and K1ᵇ at every row the port runs them, for any
+checkout: ``chip_smoke.py``'s phases ``k1`` (LGM big at B = 1 and bs2,
+with the row statistic), ``k1_bwd`` (bs2), ``vp_kernels`` (a vp rank's
+lengths), ``k1_diffusion`` (the diffusion U-Net's level 0 at inference,
+``K1_DIFFUSION_SHAPES``) and ``k1_bwd_diffusion`` (the finetune's,
+``K1_TRAIN_SHAPES``), run from the tree at ``--root`` with that tree's
+kernels, then one summary line. To
+compare two commits on one card, run it for each in one call, in turns
+(old, new, new, old), the older one an unpacked ``git archive`` in a
+directory ``.gitignore`` lists:
 
     python3 scripts/time_attention.py --root build/parent --tag parent
     python3 scripts/time_attention.py --tag change
 
+``--end-to-end`` then also runs the phases ``main``, ``image_to_3d``
+and ``diffusion_train`` (MVDream, ImageDream) of that tree, whose lines
+carry ``denoise_s`` and the finetune's ``step_warm_s``.
+
 Prints each phase's JSON lines and ``{"tag": ..., "k1_forward_ms": ...,
-"k1b_step_ms": ...}`` (K1 over the 16 sites of a B = 1 forward, K1ᵇ over
-those of a bs2 step). Needs a CUDA device.
+"k1b_step_ms": ..., "vp_ms": [...], "k1_diffusion_ms": {...},
+"k1_train_ms": {...}, "k1b_train_ms": {...}}`` (K1 over the 16 sites of
+a B = 1 forward, K1ᵇ over those of a bs2 step, [BH, S, D, vp, K1 ms, K1ᵇ
+ms] at rank 0's lengths, and one call at each diffusion row by model).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--end-to-end", action="store_true")
     ns = ap.parse_args(argv)
     import torch
 
@@ -42,13 +53,32 @@ def main(argv=None) -> int:
         raise RuntimeError(f"chip_smoke imported from outside {root}")
     from lgm_tpu_torch.ops import _build
 
-    _build.build(["mha_fwd", "mha_bwd"])
+    _build.build([name for name in _build.sources()
+                  if name.startswith("mha_")])
     dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
     k1 = chip_smoke.phase_k1(dev)
     k1b = chip_smoke.phase_k1_bwd(dev)
-    print(json.dumps({"tag": ns.tag, "root": root,
-                      "k1_forward_ms": k1["ms"], "k1b_step_ms": k1b["ms"]}),
-          flush=True)
+    vp_fwd, vp_bwd = chip_smoke.phase_vp_kernels(dev)
+    diffusion = chip_smoke.phase_k1_diffusion(dev)
+    train_fwd, train_bwd = chip_smoke.phase_k1_bwd_diffusion(dev)
+    print(json.dumps({
+        "tag": ns.tag, "root": root,
+        "k1_forward_ms": k1["ms"], "k1b_step_ms": k1b["ms"],
+        "vp_ms": [[*f["shape"], f["vp"], f["ms"], b["ms"]]
+                  for f, b in zip(vp_fwd, vp_bwd)],
+        "k1_diffusion_ms": {m: r["ms"] for m, r in diffusion.items()},
+        "k1_train_ms": {m: r["ms"] for m, r in train_fwd.items()},
+        "k1b_train_ms": {m: r["ms"] for m, r in train_bwd.items()}}),
+        flush=True)
+    if ns.end_to_end:
+        _, model, _, _ = chip_smoke.phase_main(dev)
+        chip_smoke.phase_image_to_3d(dev, model)
+        del model
+        torch.cuda.empty_cache()
+        for name in ("mvdream", "imagedream"):
+            chip_smoke.phase_diffusion_train(dev, name)
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels K1 and K1ᵇ at every block shape they
-are built for, at the shapes of LGM-big's MVAttention sites and of the
-diffusion U-Net's level-0 self-attention, beside SDPA.
+"""Time the mma design of the port's attention kernels K1 and K1ᵇ
+(``csrc/mha_fwd.cu``, ``mha_bwd.cu``: D = 32) at every block shape they
+are built for, at LGM-big's D-32 MVAttention sites, beside SDPA. (D = 64
+takes the wgmma design, whose block is a number of consumer warpgroups:
+``ops/mha.py::warpgroups``.)
 
 Run from the root of a checkout on a machine with a CUDA card:
 
     python3 scripts/torch_mha_blocks.py [--out chiprun_out/mha_blocks.jsonl]
 
-For each (BH, S, D) of one B = 1 forward, of the bs2 train step and of
-the MVDream / ImageDream U-Net at 256² (BH 10, S 4096 / 5120, D 64), it
+For each (BH, S, D) of one B = 1 forward and of the bs2 train step, it
 prints one JSON line per block shape (m-tiles per warp, warps per block)
 of K1 (with its row statistic), of K1ᵇ's dq kernel (its dK/dV kernel at
 the default shape) and of K1ᵇ's dK/dV kernel (dq at the default): the
@@ -27,9 +28,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = [(16, 4096, 32), (16, 1024, 64), (16, 256, 64),
-          (32, 4096, 32), (32, 1024, 64), (32, 256, 64),
-          (10, 4096, 64), (10, 5120, 64)]
+SHAPES = [(16, 4096, 32), (32, 4096, 32)]
 
 
 def main() -> int:
@@ -60,7 +59,7 @@ def main() -> int:
     def device_ms(fn):
         return chip_smoke.cuda_ms(fn, launches=10)
 
-    # kernel -> the module attribute of its block-shape lists by D
+    # kernel -> the module attribute of its block-shape list
     lists = {"K1": "_FWD_BLOCKS", "K1b_dq": "_DQ_BLOCKS",
              "K1b_dkv": "_DKV_BLOCKS"}
     for BH, S, D in SHAPES:
@@ -81,9 +80,9 @@ def main() -> int:
         del ref, qs, ks, vs
         for kernel, attr in lists.items():
             default = getattr(mha_mod, attr)
-            chosen = mha_mod.block_shape(default[D], BH, S, sms)
+            chosen = mha_mod.block_shape(default, BH, S, sms)
             for shape in mha_mod._BUILT:
-                setattr(mha_mod, attr, {**default, D: (shape,)})
+                setattr(mha_mod, attr, (shape,))
                 with torch.no_grad():
                     if kernel == "K1":
                         ms = device_ms(lambda: mha_mod.mha_fwd(

@@ -67,20 +67,43 @@ def test_mha_fwd_kernel_matches_plain(cuda, BH, S, D):
     assert torch.equal(o_only, o)
 
 
+def _force_block(monkeypatch, D, block):
+    """Make every K1 and K1ᵇ launch at head dim ``D`` take ``block``: an
+    (m-tiles, warps) shape of the mma kernels at D 32, a number of
+    consumer warpgroups of the wgmma kernels at D 64."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    if D == 32:
+        for name in ("_FWD_BLOCKS", "_DQ_BLOCKS", "_DKV_BLOCKS"):
+            monkeypatch.setattr(mha_mod, name, (block,))
+    else:
+        monkeypatch.setattr(mha_mod, "warpgroups",
+                            lambda BH, rows, sms: block)
+
+
+def _blocks_built(D):
+    """The blocks each kernel is built for at head dim ``D``."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    return mha_mod._BUILT if D == 32 else (1, 2)
+
+
+def _block_rows(block):
+    return 16 * block[0] * block[1] if isinstance(block, tuple) \
+        else 64 * block
+
+
 @pytest.mark.parametrize("D", [32, 64])
 def test_mha_kernels_agree_across_block_shapes(cuda, D, monkeypatch):
     """Every block shape each kernel is built for, against the plain
     versions (the main path's shapes take only some of them)."""
-    import lgm_tpu_torch.ops.mha as mha_mod
-
     rng = np.random.default_rng(5)
     q, k, v, do = (_bf16(rng, (2, 256, D), cuda) for _ in range(4))
     scale = D ** -0.5
     with torch.no_grad():
         ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
-        for shape in mha_mod._BUILT:
-            for name in ("_FWD_BLOCKS", "_DQ_BLOCKS", "_DKV_BLOCKS"):
-                monkeypatch.setitem(getattr(mha_mod, name), D, (shape,))
+        for block in _blocks_built(D):
+            _force_block(monkeypatch, D, block)
             o, lse = mha_fwd(q, k, v, scale, return_lse=True)
             _close(o, ref)
             _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
@@ -318,19 +341,16 @@ def test_mha_unequal_lengths_agree_across_block_shapes(cuda, D, Sq,
     """Every block shape each kernel is built for at Sq queries against
     256 keys (Sq 64 and 192: the dK/dV kernel's 64-query tiles), against
     the plain versions, f32 dK/dV partials included."""
-    import lgm_tpu_torch.ops.mha as mha_mod
-
     rng = np.random.default_rng(Sq + D)
     q, do = (_bf16(rng, (2, Sq, D), cuda) for _ in range(2))
     k, v = (_bf16(rng, (2, 256, D), cuda) for _ in range(2))
     scale = D ** -0.5
     with torch.no_grad():
         ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
-        for shape in mha_mod._BUILT:
-            if Sq % (16 * shape[0] * shape[1]):
+        for block in _blocks_built(D):
+            if Sq % _block_rows(block):
                 continue  # a grid of whole query blocks only
-            for name in ("_FWD_BLOCKS", "_DQ_BLOCKS", "_DKV_BLOCKS"):
-                monkeypatch.setitem(getattr(mha_mod, name), D, (shape,))
+            _force_block(monkeypatch, D, block)
             o, lse = mha_fwd(q, k, v, scale, return_lse=True)
             _close(o, ref)
             _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
@@ -1050,6 +1070,98 @@ def test_mha_bwd_kernel_at_diffusion_shapes(cuda, BH, S, D):
         assert a.shape == b.shape, name
         _close(a, b)
         assert torch.equal(a, c), name
+
+
+# (BH, Sq, Sk) of LGM big's S 1024 and 256 sites (B = 1 and bs2), a vp
+# rank's lengths, the diffusion U-Net's level-0 shapes, and small odd ones
+# (Sq 64 and 192: one-warpgroup blocks and the dK/dV kernels' 64-query
+# tiles).
+ROUTE_SHAPES = [(16, 1024, 1024), (32, 1024, 1024), (32, 256, 256),
+                (16, 256, 1024), (10, 4096, 4096), (20, 5120, 5120),
+                (3, 512, 512), (2, 64, 256), (2, 192, 256)]
+
+
+@pytest.mark.parametrize("route", ["mma", "wgmma"])
+@pytest.mark.parametrize("BH,Sq,Sk", ROUTE_SHAPES)
+def test_mha_each_route_matches_plain(cuda, route, BH, Sq, Sk):
+    """Each route at its own head dim (mma at D 32, wgmma at D 64, as
+    ``ops/mha.py::route`` sends them) at every shape: K1 (o and lse) and
+    K1ᵇ (bf16, and f32 dK/dV) against the plain versions, within
+    K1_REL_TOL; a second call gives the same bits; the route's own count
+    moves."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    D = 32 if route == "mma" else 64
+    assert mha_mod.route(D) == route
+    rng = np.random.default_rng(BH + Sq + Sk)
+    q, do = (_bf16(rng, (BH, Sq, D), cuda) for _ in range(2))
+    k, v = (_bf16(rng, (BH, Sk, D), cuda) for _ in range(2))
+    f0 = mha_fwd.route_launches[route]
+    b0 = mha_bwd.route_launches[route]
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
+        again = mha_fwd(q, k, v, 0.125, return_lse=True)
+        ref, ref_lse = mha_reference(q, k, v, 0.125, return_lse=True)
+        _close(o, ref)
+        _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+        assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+        for f32 in (False, True):
+            ours = mha_bwd(q, k, v, o, do, 0.125, lse, dkv_f32=f32)
+            twice = mha_bwd(q, k, v, o, do, 0.125, lse, dkv_f32=f32)
+            plain = mha_bwd_reference(q, k, v, o, do, 0.125, lse,
+                                      dkv_f32=f32)
+            for a, b, c in zip(ours, plain, twice):
+                assert a.dtype == b.dtype
+                _close(a, b)
+                assert torch.equal(a, c)
+    torch.cuda.synchronize()
+    assert mha_fwd.route_launches[route] == f0 + 2
+    assert mha_bwd.route_launches[route] == b0 + 4
+
+
+@pytest.mark.parametrize("BH,Sq,Sk", [(10, 4096, 4096), (16, 256, 1024),
+                                      (2, 192, 256)])
+def test_wgmma_kernels_agree_across_warpgroups(cuda, BH, Sq, Sk,
+                                               monkeypatch):
+    """The wgmma kernels' blocks of 1 and 2 consumer warpgroups give the
+    same bits: a row's arithmetic does not depend on the block."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    rng = np.random.default_rng(BH * Sq + Sk)
+    q, do = (_bf16(rng, (BH, Sq, 64), cuda) for _ in range(2))
+    k, v = (_bf16(rng, (BH, Sk, 64), cuda) for _ in range(2))
+    outs = []
+    with torch.no_grad():
+        for nc in (1, 2):
+            monkeypatch.setattr(
+                mha_mod, "warpgroups",
+                lambda BH, rows, sms, nc=nc: nc if rows % (64 * nc) == 0
+                else 1)
+            o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
+            outs.append((o, lse, *mha_bwd(q, k, v, o, do, 0.125, lse)))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_wgmma_kernels_spill_nothing(cuda):
+    """``ptxas -v`` reports no spill bytes and no stack frame in any
+    instantiation of the wgmma kernels (``chip_smoke.ptxas_summary`` of the
+    build's log)."""
+    from chip_smoke import ptxas_summary
+    from lgm_tpu_torch.ops import _build
+
+    libs = _build.build(["mha_fwd_wgmma", "mha_bwd_wgmma"])
+    seen = 0
+    for name, so in libs.items():
+        report = ptxas_summary(so.with_name(so.name + ".log").read_text())
+        for kernel, r in report.items():
+            seen += 1
+            assert (r["spill_stores"], r["spill_loads"],
+                    r["stack_frame"]) == (0, 0, 0), (kernel, r)
+    # K1: 1 and 2 warpgroups; K1ᵇ: dq at both, dK/dV at both and both
+    # query tiles.
+    assert seen == 2 + 2 + 4
 
 
 def test_diffusion_finetune_step_on_the_card(cuda):

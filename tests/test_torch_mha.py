@@ -11,8 +11,9 @@ import jax.numpy as jnp
 import torch
 
 from lgm_tpu.ops.mha import mha_kresident
-from lgm_tpu_torch.ops.mha import (kernel_takes, mha, mha_bwd,
-                                   mha_bwd_reference, mha_fwd, mha_reference)
+from lgm_tpu_torch.ops.mha import (kernel_takes, launch_plan, mha, mha_bwd,
+                                   mha_bwd_reference, mha_fwd, mha_reference,
+                                   route, warpgroups)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -202,3 +203,55 @@ def test_mha_bwd_reference_f32_partials_are_the_unrounded_dkv():
     assert torch.equal(dq32, dq)
     assert torch.equal(dk32.to(torch.bfloat16), dk)
     assert torch.equal(dv32.to(torch.bfloat16), dv)
+
+
+# LGM big's three attention site shapes (S, D) and the diffusion U-Net's
+# level-0 self-attention (MVDream, ImageDream).
+SITE_SHAPES = [(4096, 32), (1024, 64), (256, 64), (4096, 64), (5120, 64)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("S,D", SITE_SHAPES)
+def test_route_depends_on_d_and_keys_only(S, D):
+    """The route is a function of D alone, reading neither length: a vp
+    rank's S/vp queries against S keys launch on the full call's route,
+    whatever BH, so its rows are the full call's arithmetic. D 32 takes
+    the mma route, D 64 wgmma, at every site length."""
+    want = route(D)
+    assert want == ("wgmma" if D == 64 else "mma")
+    for vp in (1, 2, 4):
+        for BH in (10, 16, 20, 32):
+            assert launch_plan(BH, S // vp, S, D, H100_SMS)["route"] == want
+
+
+@pytest.mark.parametrize("rows", [64, 128, 192, 256, 1024, 1280, 4096, 5120])
+@pytest.mark.parametrize("BH", [1, 3, 10, 16, 20, 32])
+def test_warpgroups_tile_the_rows(BH, rows):
+    """The wgmma kernels' block is 1 or 2 consumer warpgroups of 64 rows:
+    whole blocks over any multiple of 64 rows, and 2 only where the 64-row
+    units outnumber the SMs (one block an SM)."""
+    nc = warpgroups(BH, rows, H100_SMS)
+    assert nc in (1, 2) and rows % (64 * nc) == 0
+    assert (nc == 2) == (rows % 128 == 0 and rows // 64 * BH > H100_SMS)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_cpu_tensors_take_the_plain_versions(D):
+    """On CPU tensors ``mha_fwd`` and ``mha_bwd`` are the plain versions,
+    whatever the route at that shape, and count no launch."""
+    rng = np.random.default_rng(D)
+    q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (2, s, D)),
+                                   dtype=torch.float32).to(torch.bfloat16)
+                   for s in (128, 1024, 1024, 128))
+    counts = (mha_fwd.launches, mha_bwd.launches,
+              dict(mha_fwd.route_launches), dict(mha_bwd.route_launches))
+    o, lse = mha_fwd(q, k, v, D ** -0.5, return_lse=True)
+    ref, ref_lse = mha_reference(q, k, v, D ** -0.5, return_lse=True)
+    assert torch.equal(o, ref) and torch.equal(lse, ref_lse)
+    for a, b in zip(mha_bwd(q, k, v, o, do, D ** -0.5, lse),
+                    mha_bwd_reference(q, k, v, o, do, D ** -0.5, lse)):
+        assert torch.equal(a, b)
+    assert counts == (mha_fwd.launches, mha_bwd.launches,
+                      mha_fwd.route_launches, mha_bwd.route_launches)
+    assert counts[0] == counts[1] == 0
+    assert set(counts[2].values()) == set(counts[3].values()) == {0}
