@@ -409,6 +409,40 @@ def k1_route_launches(since=None) -> dict:
             for name, counts in now.items()}
 
 
+def k1_site_dims(model) -> dict:
+    """Head dim -> the LGM model's MVAttention sites of that head dim (LGM
+    big: 5 at D 32, the S 4096 sites, and 11 at D 64)."""
+    from lgm_tpu_torch.models.unet import MVAttention
+
+    dims = {}
+    for m in model.modules():
+        if isinstance(m, MVAttention):
+            d = m.norm.num_channels // m.num_heads
+            dims[d] = dims.get(d, 0) + 1
+    return dims
+
+
+def check_k1_routes(what, since, dims, calls) -> dict:
+    """K1's and K1ᵇ's launches by route since the reading ``since`` in an
+    LGM path against what ``route`` says: each site of head dim D
+    (``dims``, from ``k1_site_dims``) on ``route(D)``, ``calls[name]``
+    times for wrapper ``name``. Raises where they differ; returns the
+    fields a phase's line carries."""
+    from lgm_tpu_torch.ops.mha import route
+
+    got = k1_route_launches(since)
+    for name, n in calls.items():
+        want = dict.fromkeys(got[name], 0)
+        for d, sites in dims.items():
+            want[route(d)] += sites * n
+        if got[name] != want:
+            raise AssertionError(f"{what}: {name} launches by route "
+                                 f"{got[name]}, expected {want} (sites by "
+                                 f"head dim {dims})")
+    return dict(k1_site_dims=dims, d32_route=route(32),
+                k1_route_launches={name: got[name] for name in calls})
+
+
 def check_k1b(q, k, v, o, do, scale, lse, what):
     """K1ᵇ vs its plain version, both fed K1's row statistic ``lse``;
     returns the max abs error over dq, dk, dv and the tolerance it was
@@ -1132,9 +1166,12 @@ def phase_main(dev):
 
     mha_fwd.launches = 0
     fs.composite_fwd.launches = 0
+    k1_before = k1_route_launches()
     with route_counts() as routes:
         res = infer.process(opt, mv, os.path.join(work, "big"),
                             device=str(dev), model=model)
+    k1_routes = check_k1_routes("main", k1_before, k1_site_dims(model),
+                                {"mha_fwd": 1})
     launches = {"mha_fwd": mha_fwd.launches,
                 "composite_fwd": fs.composite_fwd.launches}
     # K1 at every attention site of the forward (bf16: the gate's kernel
@@ -1212,7 +1249,7 @@ def phase_main(dev):
         video=os.path.relpath(res["video"], ROOT), load_s=load_s,
         forward_s=res["forward_s"], forward_warm_s=sorted(warm)[1],
         orbit_s=res["orbit_s"], orbit_fps=180 / res["orbit_s"],
-        launches=launches, attention_routes=routes,
+        launches=launches, attention_routes=routes, **k1_routes,
         frame0_vs_plain_max=frame_err,
         frame0_vs_oracle_mean=oracle_err,
         gaussians_vs_plain_attention_max=fwd_err,
@@ -1265,10 +1302,14 @@ def phase_train(dev):
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
+    k1_before = k1_route_launches()
     step_s, data_s, losses, gnorms = timed_steps(
         state, train_ds, gen, dev, range(N_STEPS),
         spies=backward_spies(captured))
     launches = {fn.__name__: fn.launches for fn in counters}
+    dims = k1_site_dims(state.model)
+    k1_routes = check_k1_routes("train", k1_before, dims,
+                                {"mha_fwd": N_STEPS, "mha_bwd": N_STEPS})
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     # Per step: K1 and K1ᵇ at every attention site (16), K2 (with its
     # state) and K2ᵇ on every supervision view (16); per batch: K2 on those
@@ -1290,7 +1331,7 @@ def phase_train(dev):
          loop_steps_per_s=1.0 / loop_warm,
          loss=losses, gnorm=gnorms, lr=[train.current_lr(opt, i)
                                         for i in range(N_STEPS)],
-         peak_mem_gb=peak_gb, launches=launches)
+         peak_mem_gb=peak_gb, launches=launches, **k1_routes)
 
     # The kernels on the step's own inputs (launches here are not counted
     # above: the counts were read already).
@@ -1298,13 +1339,15 @@ def phase_train(dev):
     with torch.no_grad():
         # K1 on the site's own inputs; what it gives again is what the
         # step saved (the kernel is deterministic).
-        o2, lse2, k1f_err, _, k1f_lse_err, _ = check_k1(q, k, v, scale,
-                                                        "train step")
+        k1f_route, (o2, lse2, k1f_err, _, k1f_lse_err, _) = route_of(
+            mha_mod.mha_fwd, lambda: check_k1(q, k, v, scale, "train step"))
         if not (torch.equal(o2, o) and torch.equal(lse2, lse)):
             raise AssertionError("K1 on the step's inputs differs from the "
                                  "step's own o or lse")
         del o2, lse2
-        k1_err, k1_tol = check_k1b(q, k, v, o, do, scale, lse, "train step")
+        k1_route, (k1_err, k1_tol) = route_of(
+            mha_mod.mha_bwd,
+            lambda: check_k1b(q, k, v, o, do, scale, lse, "train step"))
         k1_ms = cuda_ms(lambda: mha_mod.mha_bwd(q, k, v, o, do, scale, lse),
                         launches=K1_LAUNCHES)
         params, counts, fo, go, k2_state, th, tw, tiles_x = captured["k2"]
@@ -1337,8 +1380,8 @@ def phase_train(dev):
         # them in).
         balance = [tile_balance(fs.composite_work(*v)["tile_slots"],
                                 chunked=True) for v in captured["views"]]
-    emit("train_kernels", k1_max_abs_err=k1f_err,
-         k1_lse_max_abs_err=k1f_lse_err,
+    emit("train_kernels", k1_route=k1f_route, k1_max_abs_err=k1f_err,
+         k1_lse_max_abs_err=k1f_lse_err, k1_bwd_route=k1_route,
          k1_bwd_shape=list(q.shape), k1_bwd_max_abs_err=k1_err,
          k1_bwd_tol=k1_tol, k1_bwd_ms=k1_ms, k2_max_abs_err=k2f_err,
          k2_with_state_ms=k2f_ms,
@@ -1363,11 +1406,15 @@ def phase_train(dev):
     unet = state.model.lgm.unet
     unet.remat = True
     torch.cuda.reset_peak_memory_stats(dev)
+    k1_before = k1_route_launches()
     remat_s, remat_data_s, _, _ = timed_steps(
         state, train_ds, gen, dev, range(N_STEPS, N_STEPS + 2))
     remat_loop_s = [d + s for d, s in zip(remat_data_s, remat_s)]
     unet.remat = False
-    emit("train_cli_default", unet_remat=True, steps_s=remat_s,
+    # K1 twice a site a step (the forward and the recompute), K1ᵇ once.
+    k1_routes = check_k1_routes("train_cli_default", k1_before, dims,
+                                {"mha_fwd": 4, "mha_bwd": 2})
+    emit("train_cli_default", unet_remat=True, steps_s=remat_s, **k1_routes,
          step_warm_s=median(remat_s[1:]),
          train_steps_per_s=1.0 / median(remat_s[1:]),
          loop_s=remat_loop_s, loop_steps_per_s=1.0 / median(remat_loop_s[1:]),
@@ -1778,10 +1825,9 @@ def phase_k1_diffusion(dev):
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale),
                 launches=K1_LAUNCHES)
-        # The block: consumer warpgroups of 64 rows (wgmma) or (m-tiles,
-        # warps) of 16-row m-tiles (mma).
+        # The block: consumer warpgroups of 64 rows.
         block = launch_plan(BH, S, S, D, _sms(dev))["fwd"]
-        rows = 64 * block if route == "wgmma" else 16 * block[0] * block[1]
+        rows = 64 * block
         b_ms, b_by = k1_bound(BH, S, S, D)
         # Derived, not counted: a 30-step image's launches (the paths
         # count theirs in phases diffusion_text and image_to_3d).
@@ -2278,9 +2324,11 @@ def phase_diffusion_train(dev, name):
             rec["loss"].append(float(m["loss"]))
             rec["gnorm"].append(float(m["gnorm"]))
     k1_routes = k1_route_launches(k1_before)
-    if (k1_routes["mha_fwd"]["mma"] or k1_routes["mha_bwd"]["mma"]):
+    if any(n for counts in k1_routes.values() for r, n in counts.items()
+           if r != mha_mod.route(64)):
         raise AssertionError(f"{name}: K1/K1ᵇ routes {k1_routes} (the "
-                             f"level-0 sites take wgmma)")
+                             f"level-0 sites, D 64, take "
+                             f"{mha_mod.route(64)})")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     per_step = [DIFFUSION_SITES, DIFFUSION_SITES, 0]
     per_batch = DIFFUSION_BATCH * DIFFUSION_FRAMES
@@ -2773,6 +2821,7 @@ def phase_train_disk(dev, root):
                     wrapper=type(state.model.lgm).__name__,
                     sites=sum(isinstance(x, MVAttention)
                               for x in state.model.modules()),
+                    dims=k1_site_dims(state.model),
                     batch={k: list(v.shape) for k, v in data.items()})
             return m
 
@@ -2834,8 +2883,14 @@ def phase_train_disk(dev, root):
 
     captured = {}
     ws = os.path.join(ROOT, "build", "smoke", "train_disk")
+    k1_before = k1_route_launches()
     main_rec = run(ws, 6, [], backward_spies(captured))
     per_step, total = expected(main_rec, 6)
+    # Per site: K1 in each step's forward and recompute and in the eval,
+    # K1ᵇ each step.
+    k1_routes = check_k1_routes(
+        "train_disk", k1_before, main_rec["dims"],
+        {"mha_fwd": 6 * (2 if opt.unet_remat else 1) + 1, "mha_bwd": 6})
     if (any(l != per_step for l in main_rec["launches"])
             or main_rec["total_launches"] != total):
         raise AssertionError(f"train_disk launches {main_rec['launches']} "
@@ -2886,8 +2941,9 @@ def phase_train_disk(dev, root):
          peak_mem_gb=main_rec["peak_mem_gb"],
          launches_per_step=dict(zip(("mha_fwd", "mha_bwd", "composite_fwd",
                                      "composite_bwd"), per_step)),
-         launches=main_rec["total_launches"], k1_shape=k1_shape,
-         k1_max_abs_err=k1_err, k1_lse_max_abs_err=k1_lse_err,
+         launches=main_rec["total_launches"], **k1_routes,
+         k1_shape=k1_shape, k1_max_abs_err=k1_err,
+         k1_lse_max_abs_err=k1_lse_err,
          k1_bwd_max_abs_err=k1b_err, k1_bwd_tol=k1b_tol,
          k2_bwd_max_abs_err=k2b_err, k2_bwd_max_row_rel_err=k2b_rel)
 
@@ -3577,10 +3633,7 @@ def main() -> int:
             "library_ms")
     kernels = [
         dict(name="mha_fwd", route="cuda",
-             source="lgm_tpu_torch/ops/csrc/mha_fwd.cu",
-             sources_by_route=dict(
-                 mma="lgm_tpu_torch/ops/csrc/mha_fwd.cu",
-                 wgmma="lgm_tpu_torch/ops/csrc/mha_fwd_wgmma.cu"),
+             source="lgm_tpu_torch/ops/csrc/mha_fwd_wgmma.cu",
              image_to_3d_route_launches=image_launches["mha_fwd_routes"],
              replaces="lgm_tpu/ops/mha.py:42", launches=launches["mha_fwd"],
              infer_launches=infer_launches["mha_fwd"],
@@ -3607,10 +3660,7 @@ def main() -> int:
              convert_quality_launches=quality_launches["composite_fwd"],
              **{k: k2[k] for k in keys}),
         dict(name="mha_bwd", route="cuda",
-             source="lgm_tpu_torch/ops/csrc/mha_bwd.cu",
-             sources_by_route=dict(
-                 mma="lgm_tpu_torch/ops/csrc/mha_bwd.cu",
-                 wgmma="lgm_tpu_torch/ops/csrc/mha_bwd_wgmma.cu"),
+             source="lgm_tpu_torch/ops/csrc/mha_bwd_wgmma.cu",
              replaces="lgm_tpu/ops/mha.py:61", launches=launches["mha_bwd"],
              diffusion_shapes_bwd=k1b_train_shapes, vp_shapes=vp_bwd,
              **{k: k1b[k] for k in keys}),

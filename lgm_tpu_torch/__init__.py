@@ -28,7 +28,7 @@ data, on one GPU or several, and the finetune of the diffusion U-Net:
 - ``models``         the multi-view U-Net, the LGM forward and its loss
                      graph, LPIPS (NCHW)
 - ``ops.mha``        cross-view attention, kernels K1 and K1ᵇ
-                     (``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``)
+                     (``csrc/mha_fwd_wgmma.cu``, ``csrc/mha_bwd_wgmma.cu``)
 - ``ops.gsplat``     projection, flatsort binning, kernels K2 and K2ᵇ
                      (``gsplat/csrc/composite_{fwd,bwd}.cu``), the oracle
 - ``weights``        reference state dicts and Flax parameter trees

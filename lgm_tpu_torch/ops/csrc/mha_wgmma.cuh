@@ -1,35 +1,96 @@
-// Building blocks shared by the Hopper designs of K1 (mha_fwd_wgmma.cu) and
-// K1ᵇ (mha_bwd_wgmma.cu): TMA loads of 64-row boxes of a [rows, 64] bf16
-// matrix into 128-byte-swizzled shared memory, completing on mbarriers;
+// Building blocks of K1 (mha_fwd_wgmma.cu) and K1ᵇ (mha_bwd_wgmma.cu) on
+// Hopper, at head dim D = 32 or 64: TMA loads of 64-row boxes of a [rows,
+// D] bf16 matrix into swizzled shared memory, completing on mbarriers;
 // warpgroup products (wgmma.mma_async m64nNk16, bf16 in, f32 accumulate)
 // with B, and A where it is staged, read by the tensor cores from those
 // tiles through matrix descriptors, or A from registers.
 //
-// Layout of a staged tile (D = 64, so a row is 128 bytes): rows at a
-// 128-byte stride from a 1024-byte-aligned base, the 16-byte chunk c of row
-// r at chunk c ^ (r % 8) (what TMA's SWIZZLE_128B writes). Read K-major
-// (the contraction over D, S = Q.K^T): 8-row groups 1024 bytes apart (SBO),
-// the k-step of 16 columns at +32 bytes of the start address. Read
-// MN-major (the contraction over the rows, P.V): D = 64 is one 128-byte
-// swizzle atom wide, 8-row groups 1024 bytes apart (SBO), the k-step of 16
-// rows at +2048 bytes.
+// Layout of a staged tile: a row is 2D bytes (128 at D = 64, 64 at D =
+// 32), rows at that stride from a 1024-byte-aligned base, and the row one
+// swizzle atom wide: TMA's SWIZZLE_128B at D = 64 (the 16-byte chunk c of
+// row r at chunk c ^ (r % 8)), SWIZZLE_64B at D = 32 (chunk c of row r at
+// c ^ ((r / 2) % 4)), the descriptor's layout type the same. Either way
+// the 8-row groups lie 16 D bytes apart (the SBO: 1024 or 512). Read
+// K-major (the contraction over D, S = Q.K^T): D / 16 k-steps of 16
+// columns, each at +32 bytes of the start address. Read MN-major (the
+// contraction over the rows, P.V): the D columns are the atom's width, and
+// the k-step of 16 rows is at +32 D bytes.
 //
 // Accumulator layout of m64nNk16 (PTX ISA): in warp w of the warpgroup,
 // lane 4 g + t holds d[4 j + 0..1] = row 16 w + g, columns 8 j + 2 t and
-// + 1, and d[4 j + 2..3] = row 16 w + g + 8: the mma.sync C layout, so a
-// register A operand is built from it as in mha_common.cuh (``to_a``).
+// + 1, and d[4 j + 2..3] = row 16 w + g + 8 (j < N / 8). The register A
+// operand (rows 16 w .. + 15 of a 64 x 16 k-step) is the m16n8k16 A
+// fragment, so A of a k-step is the accumulators of two neighbouring
+// 8-column groups, rounded to bf16 pairs (``to_a``), whatever N is.
 
 #pragma once
 
 #include <cuda.h>
-
-#include "mha_common.cuh"
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace mha {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x in one SFU instruction (relative error ~2^-22; results below 2^-126
+// flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats -> one register of two bf16 (round to nearest even); the
+// lower 16 bits hold the element with the smaller column index.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Let ``kernel`` take ``bytes`` of dynamic shared memory on ``device``
+// (needed above 48 KB), once per device: ``done`` is the caller's own.
+inline cudaError_t allow_smem(const void* kernel, int bytes, int device,
+                              bool (&done)[64]) {
+  if (bytes <= 48 * 1024 || (device < 64 && done[device])) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device < 64) done[device] = true;
+  return err;
+}
+
 namespace wg {
 
-constexpr int kBoxRows = 64;                // rows a TMA box
-constexpr int kBoxBytes = kBoxRows * 128;   // one box of a D = 64 matrix
+constexpr int kBoxRows = 64;  // rows a TMA box
+
+// A staged [rows, D] bf16 tile.
+template <int D>
+struct Rows {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  static constexpr int kBytes = 2 * D;                 // a row
+  static constexpr int kBoxBytes = kBoxRows * kBytes;  // a 64-row box
+  static constexpr int kGroupBytes = 8 * kBytes;       // 8 rows (SBO)
+  static constexpr uint64_t kLayout = D == 64 ? 1 : 2;  // 128B : 64B swizzle
+};
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   const uint32_t a = smem_u32(p);
@@ -84,8 +145,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 
 // --- TMA --------------------------------------------------------------------
 
-// Box (rows row .. row + 63, all 64 columns) of the matrix ``map``
-// describes into ``dst``, counted on ``bar``'s transaction bytes.
+// Box (rows row .. row + 63, all columns) of the matrix ``map`` describes
+// into ``dst``, counted on ``bar``'s transaction bytes.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         uint64_t* bar, int row) {
   asm volatile(
@@ -110,11 +171,14 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 
 // --- wgmma ----------------------------------------------------------------
 
-// Matrix descriptor of a 128-byte-swizzled tile at shared address ``addr``
-// with 8-row groups 1024 bytes apart (SBO; LBO unused at this width).
+// Matrix descriptor of a swizzled tile of D-column rows at shared address
+// ``addr``: 8-row groups 16 D bytes apart (SBO; LBO unused, the rows one
+// atom wide), the swizzle of Rows<D>.
+template <int D>
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+         ((uint64_t)(Rows<D>::kGroupBytes >> 4) << 32) |
+         (Rows<D>::kLayout << 62);
 }
 
 __device__ __forceinline__ void fence() {
@@ -167,6 +231,18 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 32) (+)= A . B^T, as mma_ss_n64.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64) (+)= A . B, A four registers of the m16n8k16 A fragment a
 // warp, B MN-major in shared memory (descriptor).
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
@@ -181,32 +257,54 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 32) (+)= A . B, as mma_rs_n64.
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int accumulate) {
   if constexpr (N == 128) mma_ss_n128(d, a, b, accumulate);
-  else mma_ss_n64(d, a, b, accumulate);
+  else if constexpr (N == 64) mma_ss_n64(d, a, b, accumulate);
+  else mma_ss_n32(d, a, b, accumulate);
 }
 
-// d (64 x N) = A (64 x 64, K-major tile at ``a``) . B^T (N x 64, K-major
-// tile at ``b``): four k-steps of 16 columns.
 template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b,
+                                       int accumulate) {
+  if constexpr (N == 64) mma_rs_n64(d, a, b, accumulate);
+  else mma_rs_n32(d, a, b, accumulate);
+}
+
+// d (64 x N) = A (64 x D, K-major tile at ``a``) . B^T (N x D, K-major
+// tile at ``b``): D / 16 k-steps of 16 columns.
+template <int N, int D>
 __device__ __forceinline__ void product_nt(float (&d)[N / 2], uint32_t a,
                                            uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    mma_ss<N>(d, desc(a + 32 * kk), desc(b + 32 * kk), kk);
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma_ss<N>(d, desc<D>(a + 32 * kk), desc<D>(b + 32 * kk), kk);
 }
 
-// acc (64 x 64) += A (64 x 16 K steps, register fragments) . B (16 K rows
-// a step x 64, MN-major tile at ``b``).
-template <int K>
-__device__ __forceinline__ void accumulate_nn(float (&acc)[32],
+// acc (64 x D) += A (64 x 16 K steps, register fragments) . B (16 K rows
+// a step x D, MN-major tile at ``b``).
+template <int K, int D>
+__device__ __forceinline__ void accumulate_nn(float (&acc)[D / 2],
                                               const uint32_t (&a)[K][4],
                                               uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < K; ++kk)
-    mma_rs_n64(acc, a[kk], desc(b + 2048 * kk), 1);
+    mma_rs<D>(acc, a[kk], desc<D>(b + 16 * Rows<D>::kBytes * kk), 1);
 }
 
 // The register A fragments (K steps of 16 columns) of bf16(x), x in the
@@ -223,15 +321,16 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[K][4],
   }
 }
 
-// Rows r and r + 8 of a [*, 64] matrix from acc (accumulator layout) times
+// Rows r and r + 8 of a [*, D] matrix from acc (accumulator layout) times
 // mul0 (row r) and mul1 (row r + 8), in bf16 or (f32) unrounded.
+template <int D>
 __device__ __forceinline__ void store_rows(bf16* base, int r, int t,
-                                           const float (&acc)[32], float mul0,
-                                           float mul1) {
-  bf16* ra = base + (size_t)r * 64;
-  bf16* rb = ra + 8 * 64;
+                                           const float (&acc)[D / 2],
+                                           float mul0, float mul1) {
+  bf16* ra = base + (size_t)r * D;
+  bf16* rb = ra + 8 * D;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t;
     *reinterpret_cast<uint32_t*>(ra + c) =
         pack_bf16(acc[4 * j] * mul0, acc[4 * j + 1] * mul0);
@@ -239,13 +338,14 @@ __device__ __forceinline__ void store_rows(bf16* base, int r, int t,
         pack_bf16(acc[4 * j + 2] * mul1, acc[4 * j + 3] * mul1);
   }
 }
+template <int D>
 __device__ __forceinline__ void store_rows(float* base, int r, int t,
-                                           const float (&acc)[32], float mul0,
-                                           float mul1) {
-  float* ra = base + (size_t)r * 64;
-  float* rb = ra + 8 * 64;
+                                           const float (&acc)[D / 2],
+                                           float mul0, float mul1) {
+  float* ra = base + (size_t)r * D;
+  float* rb = ra + 8 * D;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int c = 8 * j + 2 * t;
     *reinterpret_cast<float2*>(ra + c) =
         make_float2(acc[4 * j] * mul0, acc[4 * j + 1] * mul0);
@@ -285,19 +385,21 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of a [rows, 64] bf16 matrix at ``ptr`` (16-byte aligned),
-// read in 64-row boxes into 128-byte-swizzled shared memory.
+// The tensor map of a [rows, D] bf16 matrix at ``ptr`` (16-byte aligned),
+// read in 64-row boxes into shared memory swizzled as Rows<D> says.
+template <int D>
 inline cudaError_t rows_map(CUtensorMap* map, const void* ptr, long rows) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {64, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {128};
-  const cuuint32_t box[2] = {64, wg::kBoxRows};
+  const cuuint64_t dims[2] = {D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {wg::Rows<D>::kBytes};
+  const cuuint32_t box[2] = {D, wg::kBoxRows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

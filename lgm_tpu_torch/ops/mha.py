@@ -9,9 +9,8 @@ f32 accumulation, output in the input dtype. With ``return_lse`` it also
 returns the f32 logsumexp L = m + log(l) of each row's scaled logits (m
 the row max, l the f32 sum of the unrounded P), ``[BH, Sq]``. On a CUDA
 tensor it launches a hand-written kernel (bf16, D in {32, 64}, Sk a
-multiple of 128, Sq of 64, scale > 0) or raises: by ``route``, at D = 32
-``csrc/mha_fwd.cu`` (mma.sync), at D = 64 ``csrc/mha_fwd_wgmma.cu``
-(wgmma fed by TMA); on a CPU tensor it runs
+multiple of 128, Sq of 64, scale > 0) or raises: ``csrc/mha_fwd_wgmma.cu``
+(wgmma fed by TMA, one design at both head dims); on a CPU tensor it runs
 ``mha_reference``, the same function in plain PyTorch. Sq differs from
 Sk under the view-sharded U-Net, where a vp rank holds the queries of its
 own views and the keys of all of them (``mha_views``); each row is then
@@ -25,8 +24,7 @@ dO, dS and P rounded to the input dtype before their products, and
 returns dq = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO in the input dtype
 (dK and dV in f32 with ``dkv_f32``: a vp rank's partial sums, summed over
 the ranks before one rounding). On a CUDA tensor it launches
-``csrc/mha_bwd.cu`` or, by the same route, ``csrc/mha_bwd_wgmma.cu``; on
-a CPU tensor it runs ``mha_bwd_reference``.
+``csrc/mha_bwd_wgmma.cu``; on a CPU tensor it runs ``mha_bwd_reference``.
 ``mha`` joins the two in an autograd Function, and ``mha_views`` does so
 for a vp rank, gathering K and V over the group and summing their
 gradients back. Each kernel's design note and bound are in its source.
@@ -57,20 +55,6 @@ import torch
 from lgm_tpu_torch.ops import _build
 from lgm_tpu_torch.parallel import dist
 
-_SIGNATURES = {
-    "mha_fwd_bf16": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
-        ctypes.c_int,
-    ),
-}
-_BWD_SIGNATURES = {
-    "mha_bwd_bf16": (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_int],
-        ctypes.c_int,
-    ),
-}
 _WGMMA_SIGNATURES = {
     "mha_fwd_wgmma_bf16": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
@@ -89,76 +73,45 @@ _TILE = 128  # keys per staged tile; Sk must be a multiple
 # Queries per staged tile of the dK/dV kernel where Sq is not a multiple
 # of _TILE; Sq must be a multiple.
 _Q_TILE = 64
-# Block shapes the mma kernels are built for, as (m-tiles of 16 rows per
-# warp, warps per block), and each kernel's own list in order of
-# preference, as ``scripts/torch_mha_blocks.py`` measured them at D = 32.
-_BUILT = ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1))
-_FWD_BLOCKS = ((2, 8), (2, 4), (1, 8), (1, 4), (1, 2), (1, 1))
-_DQ_BLOCKS = ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1))
-_DKV_BLOCKS = ((2, 4), (2, 8), (1, 8), (1, 4), (1, 2), (1, 1))
-
-
-# The two designs of each kernel: "mma" (mma.sync fed by cp.async,
-# ``csrc/mha_fwd.cu`` / ``mha_bwd.cu``, built at D = 32) and "wgmma" (wgmma
-# fed by TMA, ``csrc/mha_fwd_wgmma.cu`` / ``mha_bwd_wgmma.cu``, D = 64).
-ROUTES = ("mma", "wgmma")
+# The design of each kernel: "wgmma" (wgmma fed by TMA,
+# ``csrc/mha_fwd_wgmma.cu`` / ``mha_bwd_wgmma.cu``, D = 32 and 64).
+ROUTES = ("wgmma",)
 
 
 def route(D: int) -> str:
-    """The design K1 and K1ᵇ take at head dim ``D``: "wgmma" at D = 64,
-    "mma" at D = 32. It reads neither length, so a vp rank (Sq = S/vp) and
-    the full call run the same arithmetic.
+    """The design K1 and K1ᵇ take at head dim ``D``: "wgmma" at D = 32 and
+    64. It reads neither length, so a vp rank (Sq = S/vp) and the full
+    call run the same arithmetic.
 
-    At every D-64 row the port runs, wgmma is faster than the mma design
-    or inside its spread. Device ms, mma → wgmma, medians of 10 runs of
-    ``scripts/time_attention.py`` each, in turns in one call on an NVIDIA
-    H100 80GB HBM3 at 700 W: K1 S 5120 BH 20 0.764 → 0.579, S 4096 BH 10
-    0.288 → 0.204, S 1024 BH 32 0.051 → 0.043; K1ᵇ S 5120 BH 20 1.450 →
-    1.175, S 1024 BH 32 0.105 → 0.095. At S 256 the host's enqueue bounds
-    both designs (20-45 µs a call either way): over the six K1 and five
-    K1ᵇ rows there, B = 1, bs2 and a vp rank's, K1 0.030 → 0.025 and K1ᵇ
-    0.047 → 0.046."""
-    return "wgmma" if D == 64 else "mma"
+    The wgmma design replaced an mma.sync one (m16n8k16 fed by cp.async)
+    at both head dims, where it was faster than that design beyond its
+    spread at every row the port runs, or inside it where the host's
+    enqueue bounds both (S 256): device times of K1 and K1ᵇ at LGM big's
+    sites (B = 1 and bs2), a vp rank's lengths and the diffusion U-Net's
+    level 0, parent and change in turns in one call of
+    ``scripts/time_attention.py`` (PERF.md)."""
+    return "wgmma"
 
 
-def warpgroups(BH: int, rows: int, sms: int) -> int:
+def warpgroups(BH: int, rows: int, sms: int, D: int) -> int:
     """Consumer warpgroups (64 rows each) a block of the wgmma kernels over
     ``rows`` (queries in K1 and the dq kernel, keys in the dK/dV kernel),
-    one block an SM: 2 where 128-row blocks divide the rows and the 64-row
-    units outnumber the ``sms`` multiprocessors, else 1 (more SMs busy)."""
+    one block an SM: at D = 32, 4 where 256-row blocks divide the rows and
+    fill every one of the ``sms`` multiprocessors at least once; else 2
+    where 128-row blocks divide the rows and the 64-row units outnumber
+    the multiprocessors; else 1 (more SMs busy). A row's arithmetic does
+    not depend on the block."""
+    if D == 32 and rows % 256 == 0 and rows // 256 * BH >= sms:
+        return 4
     return 2 if rows % 128 == 0 and rows // 64 * BH > sms else 1
-
-
-def _block(kernel: str, r: str, BH: int, rows: int, sms: int):
-    """The block of ``kernel`` ("fwd", "dq" or "dkv") over ``rows`` on
-    route ``r``: consumer warpgroups (wgmma) or (m-tiles, warps) (mma)."""
-    if r == "wgmma":
-        return warpgroups(BH, rows, sms)
-    blocks = {"fwd": _FWD_BLOCKS, "dq": _DQ_BLOCKS, "dkv": _DKV_BLOCKS}
-    return block_shape(blocks[kernel], BH, rows, sms)
 
 
 def launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int) -> dict:
     """How K1 and K1ᵇ launch at this shape on ``sms`` multiprocessors: the
-    ``route``, and the block of each kernel (K1 ``fwd``, K1ᵇ's ``dq`` and
-    ``dkv``)."""
-    r = route(D)
-    return dict(route=r, fwd=_block("fwd", r, BH, Sq, sms),
-                dq=_block("dq", r, BH, Sq, sms),
-                dkv=_block("dkv", r, BH, Sk, sms))
-
-
-def block_shape(blocks, BH: int, S: int, sms: int):
-    """The first (most preferred) block shape of ``blocks`` whose grid
-    over the ``S`` rows the kernel runs over (queries in K1 and the dq
-    kernel, keys in the dK/dV kernel) still puts a block on every one of
-    ``sms`` multiprocessors, else the last: at S = 256 a 64-row block
-    leaves half of an H100's 132 SMs idle."""
-    for mt, nw in blocks:
-        rows = 16 * mt * nw
-        if S % rows == 0 and S // rows * BH >= sms:
-            return mt, nw
-    return blocks[-1]
+    ``route``, and the consumer warpgroups a block of each kernel (K1
+    ``fwd`` and K1ᵇ's ``dq`` over the queries, ``dkv`` over the keys)."""
+    return dict(route=route(D), fwd=warpgroups(BH, Sq, sms, D),
+                dq=warpgroups(BH, Sq, sms, D), dkv=warpgroups(BH, Sk, sms, D))
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -273,13 +226,9 @@ def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             float(scale))
     stream = torch.cuda.current_stream(dev).cuda_stream
     r = route(D)
-    block = _block("fwd", r, BH, Sq, _sms(dev))
-    if r == "wgmma":
-        lib = _build.load("mha_fwd_wgmma", _WGMMA_SIGNATURES)
-        err = lib.mha_fwd_wgmma_bf16(*args, block, stream, dev.index)
-    else:
-        lib = _build.load("mha_fwd", _SIGNATURES)
-        err = lib.mha_fwd_bf16(*args, *block, stream, dev.index)
+    lib = _build.load("mha_fwd_wgmma", _WGMMA_SIGNATURES)
+    err = lib.mha_fwd_wgmma_bf16(*args, warpgroups(BH, Sq, _sms(dev), D),
+                                 stream, dev.index)
     _build.check(lib, err, "mha_fwd")
     mha_fwd.launches += 1
     mha_fwd.route_launches[r] += 1
@@ -315,16 +264,10 @@ def mha_bwd(q, k, v, o, do, scale: float, lse, dkv_f32: bool = False):
     stream = torch.cuda.current_stream(dev).cuda_stream
     r = route(D)
     sms = _sms(dev)
-    dq_block = _block("dq", r, BH, Sq, sms)
-    dkv_block = _block("dkv", r, BH, Sk, sms)
-    if r == "wgmma":
-        lib = _build.load("mha_bwd_wgmma", _WGMMA_BWD_SIGNATURES)
-        err = lib.mha_bwd_wgmma_bf16(*args, dq_block, dkv_block,
-                                     int(dkv_f32), stream, dev.index)
-    else:
-        lib = _build.load("mha_bwd", _BWD_SIGNATURES)
-        err = lib.mha_bwd_bf16(*args, *dq_block, *dkv_block, int(dkv_f32),
-                               stream, dev.index)
+    lib = _build.load("mha_bwd_wgmma", _WGMMA_BWD_SIGNATURES)
+    err = lib.mha_bwd_wgmma_bf16(*args, warpgroups(BH, Sq, sms, D),
+                                 warpgroups(BH, Sk, sms, D), int(dkv_f32),
+                                 stream, dev.index)
     _build.check(lib, err, "mha_bwd")
     mha_bwd.launches += 1
     mha_bwd.route_launches[r] += 1

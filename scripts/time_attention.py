@@ -13,9 +13,10 @@ directory ``.gitignore`` lists:
     python3 scripts/time_attention.py --root build/parent --tag parent
     python3 scripts/time_attention.py --tag change
 
-``--end-to-end`` then also runs the phases ``main``, ``image_to_3d``
-and ``diffusion_train`` (MVDream, ImageDream) of that tree, whose lines
-carry ``denoise_s`` and the finetune's ``step_warm_s``.
+``--end-to-end`` then also runs the phases ``main``, ``image_to_3d``,
+``diffusion_train`` (MVDream, ImageDream) and ``train`` (LGM big bs2) of
+that tree, whose lines carry ``forward_warm_s``, ``denoise_s`` and the
+finetune's and the LGM step's ``step_warm_s``.
 
 Prints each phase's JSON lines and ``{"tag": ..., "k1_forward_ms": ...,
 "k1b_step_ms": ..., "vp_ms": [...], "k1_diffusion_ms": {...},
@@ -79,6 +80,8 @@ def main(argv=None) -> int:
         for name in ("mvdream", "imagedream"):
             chip_smoke.phase_diffusion_train(dev, name)
             torch.cuda.empty_cache()
+        chip_smoke.phase_train(dev)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -32,10 +32,10 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-# The three (BH, S, D) of K1ᵇ in the LGM-big bs2 step (K1 at B = 1 runs
-# BH = 16), and two small odd ones that take other block shapes.
-MHA_SHAPES = [(16, 4096, 32), (32, 1024, 64), (32, 256, 64), (3, 256, 32),
-              (3, 512, 64)]
+# The three (BH, S, D) of K1ᵇ in the LGM-big bs2 step, K1 at B = 1 (BH =
+# 16) at S 4096, and two small odd ones that take other block shapes.
+MHA_SHAPES = [(16, 4096, 32), (32, 4096, 32), (32, 1024, 64), (32, 256, 64),
+              (3, 256, 32), (3, 512, 64)]
 # Two bf16 rounding steps of the output scale (sums in other orders; in
 # K1ᵇ bf16 dS and P may round the other way).
 K1_REL_TOL = 2.0 ** -7
@@ -68,29 +68,22 @@ def test_mha_fwd_kernel_matches_plain(cuda, BH, S, D):
 
 
 def _force_block(monkeypatch, D, block):
-    """Make every K1 and K1ᵇ launch at head dim ``D`` take ``block``: an
-    (m-tiles, warps) shape of the mma kernels at D 32, a number of
-    consumer warpgroups of the wgmma kernels at D 64."""
+    """Make every K1 and K1ᵇ launch at head dim ``D`` take ``block``
+    consumer warpgroups."""
     import lgm_tpu_torch.ops.mha as mha_mod
 
-    if D == 32:
-        for name in ("_FWD_BLOCKS", "_DQ_BLOCKS", "_DKV_BLOCKS"):
-            monkeypatch.setattr(mha_mod, name, (block,))
-    else:
-        monkeypatch.setattr(mha_mod, "warpgroups",
-                            lambda BH, rows, sms: block)
+    monkeypatch.setattr(mha_mod, "warpgroups",
+                        lambda BH, rows, sms, D: block)
 
 
 def _blocks_built(D):
-    """The blocks each kernel is built for at head dim ``D``."""
-    import lgm_tpu_torch.ops.mha as mha_mod
-
-    return mha_mod._BUILT if D == 32 else (1, 2)
+    """The blocks each kernel is built for at head dim ``D``: 1, 2 and (at
+    D 32) 4 consumer warpgroups."""
+    return (1, 2, 4) if D == 32 else (1, 2)
 
 
 def _block_rows(block):
-    return 16 * block[0] * block[1] if isinstance(block, tuple) \
-        else 64 * block
+    return 64 * block
 
 
 @pytest.mark.parametrize("D", [32, 64])
@@ -1075,24 +1068,23 @@ def test_mha_bwd_kernel_at_diffusion_shapes(cuda, BH, S, D):
 # (BH, Sq, Sk) of LGM big's S 1024 and 256 sites (B = 1 and bs2), a vp
 # rank's lengths, the diffusion U-Net's level-0 shapes, and small odd ones
 # (Sq 64 and 192: one-warpgroup blocks and the dK/dV kernels' 64-query
-# tiles).
+# tiles; Sq 64 against Sk 128: one tile of each).
 ROUTE_SHAPES = [(16, 1024, 1024), (32, 1024, 1024), (32, 256, 256),
                 (16, 256, 1024), (10, 4096, 4096), (20, 5120, 5120),
-                (3, 512, 512), (2, 64, 256), (2, 192, 256)]
+                (3, 512, 512), (2, 64, 256), (2, 192, 256), (2, 64, 128)]
 
 
-@pytest.mark.parametrize("route", ["mma", "wgmma"])
+@pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("BH,Sq,Sk", ROUTE_SHAPES)
-def test_mha_each_route_matches_plain(cuda, route, BH, Sq, Sk):
-    """Each route at its own head dim (mma at D 32, wgmma at D 64, as
-    ``ops/mha.py::route`` sends them) at every shape: K1 (o and lse) and
-    K1ᵇ (bf16, and f32 dK/dV) against the plain versions, within
-    K1_REL_TOL; a second call gives the same bits; the route's own count
-    moves."""
+def test_mha_each_route_matches_plain(cuda, D, BH, Sq, Sk):
+    """Each head dim on the route ``ops/mha.py::route`` sends it (wgmma at
+    D 32 and 64) at every shape: K1 (o and lse) and K1ᵇ (bf16, and f32
+    dK/dV) against the plain versions, within K1_REL_TOL; a second call
+    gives the same bits; the route's own count moves."""
     import lgm_tpu_torch.ops.mha as mha_mod
 
-    D = 32 if route == "mma" else 64
-    assert mha_mod.route(D) == route
+    route = mha_mod.route(D)
+    assert route == "wgmma"
     rng = np.random.default_rng(BH + Sq + Sk)
     q, do = (_bf16(rng, (BH, Sq, D), cuda) for _ in range(2))
     k, v = (_bf16(rng, (BH, Sk, D), cuda) for _ in range(2))
@@ -1119,29 +1111,34 @@ def test_mha_each_route_matches_plain(cuda, route, BH, Sq, Sk):
     assert mha_bwd.route_launches[route] == b0 + 4
 
 
+@pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("BH,Sq,Sk", [(10, 4096, 4096), (16, 256, 1024),
-                                      (2, 192, 256)])
-def test_wgmma_kernels_agree_across_warpgroups(cuda, BH, Sq, Sk,
+                                      (2, 192, 256), (32, 1024, 4096)])
+def test_wgmma_kernels_agree_across_warpgroups(cuda, BH, Sq, Sk, D,
                                                monkeypatch):
-    """The wgmma kernels' blocks of 1 and 2 consumer warpgroups give the
-    same bits: a row's arithmetic does not depend on the block."""
+    """The wgmma kernels' blocks of 1, 2 and (at D 32) 4 consumer
+    warpgroups give the same bits, f32 dK/dV partials included: a row's
+    arithmetic does not depend on the block."""
     import lgm_tpu_torch.ops.mha as mha_mod
 
-    rng = np.random.default_rng(BH * Sq + Sk)
-    q, do = (_bf16(rng, (BH, Sq, 64), cuda) for _ in range(2))
-    k, v = (_bf16(rng, (BH, Sk, 64), cuda) for _ in range(2))
+    rng = np.random.default_rng(BH * Sq + Sk + D)
+    q, do = (_bf16(rng, (BH, Sq, D), cuda) for _ in range(2))
+    k, v = (_bf16(rng, (BH, Sk, D), cuda) for _ in range(2))
     outs = []
     with torch.no_grad():
-        for nc in (1, 2):
+        for nc in _blocks_built(D):
             monkeypatch.setattr(
                 mha_mod, "warpgroups",
-                lambda BH, rows, sms, nc=nc: nc if rows % (64 * nc) == 0
-                else 1)
+                lambda BH, rows, sms, D, nc=nc: nc
+                if rows % (64 * nc) == 0 else 1)
             o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
-            outs.append((o, lse, *mha_bwd(q, k, v, o, do, 0.125, lse)))
+            outs.append((o, lse, *mha_bwd(q, k, v, o, do, 0.125, lse),
+                         *mha_bwd(q, k, v, o, do, 0.125, lse,
+                                  dkv_f32=True)))
     torch.cuda.synchronize()
-    for a, b in zip(*outs):
-        assert torch.equal(a, b)
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
 
 
 def test_wgmma_kernels_spill_nothing(cuda):
@@ -1159,9 +1156,9 @@ def test_wgmma_kernels_spill_nothing(cuda):
             seen += 1
             assert (r["spill_stores"], r["spill_loads"],
                     r["stack_frame"]) == (0, 0, 0), (kernel, r)
-    # K1: 1 and 2 warpgroups; K1ᵇ: dq at both, dK/dV at both and both
-    # query tiles.
-    assert seen == 2 + 2 + 4
+    # K1 at 1, 2 and (D 32) 4 warpgroups; K1ᵇ: dq at each, dK/dV at each
+    # and both query tiles.
+    assert seen == (3 + 3 + 6) + (2 + 2 + 4)
 
 
 def test_diffusion_finetune_step_on_the_card(cuda):

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import torch
 
 from lgm_tpu.ops.mha import mha_kresident
-from lgm_tpu_torch.ops.mha import (kernel_takes, launch_plan, mha, mha_bwd,
-                                   mha_bwd_reference, mha_fwd, mha_reference,
-                                   route, warpgroups)
+from lgm_tpu_torch.ops.mha import (ROUTES, kernel_takes, launch_plan, mha,
+                                   mha_bwd, mha_bwd_reference, mha_fwd,
+                                   mha_reference, route, warpgroups)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -215,24 +215,49 @@ H100_SMS = 132
 def test_route_depends_on_d_and_keys_only(S, D):
     """The route is a function of D alone, reading neither length: a vp
     rank's S/vp queries against S keys launch on the full call's route,
-    whatever BH, so its rows are the full call's arithmetic. D 32 takes
-    the mma route, D 64 wgmma, at every site length."""
+    whatever BH, so its rows are the full call's arithmetic. Both head
+    dims take the wgmma route, at every site length."""
     want = route(D)
-    assert want == ("wgmma" if D == 64 else "mma")
+    assert want == "wgmma" and ROUTES == (want,)
     for vp in (1, 2, 4):
         for BH in (10, 16, 20, 32):
             assert launch_plan(BH, S // vp, S, D, H100_SMS)["route"] == want
 
 
+@pytest.mark.parametrize("S,D", SITE_SHAPES)
+def test_launch_plan_is_the_warpgroups_at_each_head_dim(S, D):
+    """At D 32 as at D 64 each kernel's block is a number of consumer
+    warpgroups: ``warpgroups`` at that head dim over the rows it runs over
+    (queries in K1 and the dq kernel, keys in the dK/dV kernel), for the
+    full call and a vp rank's S/vp queries."""
+    for vp in (1, 2, 4):
+        for BH in (10, 16, 20, 32):
+            plan = launch_plan(BH, S // vp, S, D, H100_SMS)
+            assert plan == dict(
+                route="wgmma", fwd=warpgroups(BH, S // vp, H100_SMS, D),
+                dq=warpgroups(BH, S // vp, H100_SMS, D),
+                dkv=warpgroups(BH, S, H100_SMS, D))
+    # LGM big's S 4096 sites take four warpgroups at B = 1 and bs2.
+    if (S, D) == (4096, 32):
+        for BH in (16, 32):
+            assert launch_plan(BH, S, S, D, H100_SMS) == dict(
+                route="wgmma", fwd=4, dq=4, dkv=4)
+
+
+@pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("rows", [64, 128, 192, 256, 1024, 1280, 4096, 5120])
 @pytest.mark.parametrize("BH", [1, 3, 10, 16, 20, 32])
-def test_warpgroups_tile_the_rows(BH, rows):
-    """The wgmma kernels' block is 1 or 2 consumer warpgroups of 64 rows:
-    whole blocks over any multiple of 64 rows, and 2 only where the 64-row
-    units outnumber the SMs (one block an SM)."""
-    nc = warpgroups(BH, rows, H100_SMS)
-    assert nc in (1, 2) and rows % (64 * nc) == 0
-    assert (nc == 2) == (rows % 128 == 0 and rows // 64 * BH > H100_SMS)
+def test_warpgroups_tile_the_rows(BH, rows, D):
+    """The wgmma kernels' block is 1, 2 or (at D 32) 4 consumer warpgroups
+    of 64 rows: whole blocks over any multiple of 64 rows; 4 only where the
+    256-row blocks fill every SM at least once, else 2 only where the
+    64-row units outnumber the SMs (one block an SM)."""
+    nc = warpgroups(BH, rows, H100_SMS, D)
+    assert nc in ((1, 2, 4) if D == 32 else (1, 2)) and rows % (64 * nc) == 0
+    four = D == 32 and rows % 256 == 0 and rows // 256 * BH >= H100_SMS
+    assert (nc == 4) == four
+    assert (nc == 2) == (not four and rows % 128 == 0
+                         and rows // 64 * BH > H100_SMS)
 
 
 @pytest.mark.parametrize("D", [32, 64])

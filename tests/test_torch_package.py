@@ -80,14 +80,14 @@ def test_kernel_sources_are_found_and_build_needs_nvcc(tmp_path,
     from lgm_tpu_torch.ops import _build
 
     srcs = _build.sources()
-    assert set(srcs) == {"mha_fwd", "mha_bwd", "mha_fwd_wgmma",
-                         "mha_bwd_wgmma", "composite_fwd", "composite_bwd",
-                         "tiled_fwd", "tiled_bwd"}
+    assert set(srcs) == {"mha_fwd_wgmma", "mha_bwd_wgmma", "composite_fwd",
+                         "composite_bwd", "tiled_fwd", "tiled_bwd"}
     assert all(p.suffix == ".cu" and p.parent.name == "csrc"
                for p in srcs.values())
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
-    t = _build.target(srcs["mha_fwd"])
-    assert t.parent == tmp_path / "kernels" and t.name.startswith("mha_fwd-")
+    t = _build.target(srcs["mha_fwd_wgmma"])
+    assert t.parent == tmp_path / "kernels" and \
+        t.name.startswith("mha_fwd_wgmma-")
     try:
         _build._nvcc()
     except RuntimeError:
@@ -95,5 +95,5 @@ def test_kernel_sources_are_found_and_build_needs_nvcc(tmp_path,
     else:
         pytest.skip("this host has nvcc")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build(["mha_fwd"])
+        _build.build(["mha_fwd_wgmma"])
     assert not (tmp_path / "kernels").exists()
