@@ -27,6 +27,15 @@ checked against the counts each path must give):
   K1ᵇ, K3, K3ᵇ; K2 for the batches' ground-truth renders), then K3 and
   K3ᵇ held against their plain versions on that step's own inputs, and
   the backend's image held against the oracle and flatsort;
+- fp32 (``mixed_precision="fp32"``, the whole net in f32): K1 and K1ᵇ on
+  f32 inputs (3xTF32 kernels) at LGM big's site shapes (BH 16, 32 and
+  128) and a vp rank's lengths against their plain versions, bit-equal
+  repeats and vp rows, beside SDPA at f32 (``k1_f32``); then LGM big's
+  ``infer.process`` (f32 K1 16 a forward), bs2 train steps on the kernel
+  route (f32 K1 and K1ᵇ 16 each a step) and, from the same weights and
+  batches, on the dense route forced in this process (peak memory and
+  step time both ways, the two first losses held to each other), and one
+  step at the preset's batch of 8 with its U-Net recompute (``fp32``);
 - the attention gate: the ``nano`` preset (head dim 6) trained one step
   in fp32 and in bf16, every site on the dense route, losses finite;
 - the bridge from lgm_tpu's checkpoints: the committed nano ``ckpt_1``
@@ -119,6 +128,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # exp rate is that of the SFUs: 16 per clock per SM, 132 SMs, 1.98 GHz
 # maximum boost clock.
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -149,6 +159,28 @@ K1_REL_TOL = 2.0 ** -7
 # and sums taken in other orders (and ex2.approx in the kernel): 1e-5 of
 # max(1, the largest |L|).
 K1_LSE_REL_TOL = 1e-5
+# K1 and K1ᵇ on f32 inputs (``--mixed-precision fp32``): LGM big's three
+# site shapes at B = 1 (BH 16, a forward) and bs2 (BH 32, a step), and the
+# preset's batch of 8 at S 4096 (BH 128), each with its sites; and the vp
+# lengths (Sq = S/2 and S/4 against S keys) at the first six.
+K1_F32_SHAPES = [((BH, S, D), sites) for BH in (16, 32)
+                 for (S, D), sites in (((4096, 32), 5), ((1024, 64), 5),
+                                       ((256, 64), 6))] + [((128, 4096, 32),
+                                                            5)]
+# The f32 kernels against their plain versions (f32 matmuls, TF32 off):
+# 3xTF32 products are about 2^-22 of |a b| from f32 products and the sums
+# run in other orders, so o, dq, dk and dv within 1e-5 of their largest
+# |value|; the statistic as the bf16 kernel's (K1_LSE_REL_TOL). The vp
+# ranks' summed dK/dV partials against the full call's: the same.
+K1_F32_REL_TOL = 1e-5
+# The fp32 step on the kernel route against the same step on the dense
+# route (same weights, batch and background): each of the 16 attention
+# sites within ~1e-5 of its scale of the other route's, through the f32
+# network and the loss; the losses within 1e-4 of each other.
+FP32_ROUTE_LOSS_RTOL = 1e-4
+# Steps of each fp32 training route at bs2: one cold, three warm (the
+# median of three stands against one slow warm step).
+N_FP32_STEPS = 4
 # K1 in the diffusion U-Net at 256²: (BH, S, D) of the level-0 joint
 # self-attention by model, BH = 2 (the CFG pair) x 5 heads, S = F x 32²,
 # and its sites a U-Net call (2 on the way down, 3 on the way up); the
@@ -348,6 +380,37 @@ def k1b_bound(BH: int, Sq: int, Sk: int, D: int, dkv_bytes: int = 2):
          "f32": 5.0 * BH * Sq * Sk / F32_FLOPS},
         4 * BH * Sq * D * 2 + 2 * BH * Sk * D * (2 + dkv_bytes)
         + BH * Sq * 4)
+
+
+def k1_f32_bound(BH: int, Sq: int, Sk: int, D: int):
+    """K1's bound at f32: the function's 4 BH Sq Sk D flops (Q.Kᵀ, P.V) at
+    f32 grade, three TF32 products each (3xTF32: 12 BH Sq Sk D over the
+    TF32 tensor-core peak), BH Sq Sk exps and ~5 f32 operations a logit;
+    q, k, v read, o and the f32 row statistic written once, 4 bytes an
+    element."""
+    return bound(
+        {"tensor": 12.0 * BH * Sq * Sk * D / TF32_TENSOR_FLOPS,
+         "exp": BH * Sq * Sk / SFU_EXP_PER_S,
+         "f32": 5.0 * BH * Sq * Sk / F32_FLOPS},
+        2 * BH * Sq * D * 4 + 2 * BH * Sk * D * 4 + BH * Sq * 4)
+
+
+def k1b_f32_bound(BH: int, Sq: int, Sk: int, D: int):
+    """K1ᵇ's bound at f32: the function's 10 BH Sq Sk D flops (Q.Kᵀ, dO.Vᵀ,
+    dS.K, dSᵀ.Q, Pᵀ.dO), three TF32 products each (30 BH Sq Sk D over the
+    TF32 peak), BH Sq Sk exps and ~5 f32 operations a logit; q, o, dO, k,
+    v and the statistic read, dq, dk, dv written once, all f32."""
+    return bound(
+        {"tensor": 30.0 * BH * Sq * Sk * D / TF32_TENSOR_FLOPS,
+         "exp": BH * Sq * Sk / SFU_EXP_PER_S,
+         "f32": 5.0 * BH * Sq * Sk / F32_FLOPS},
+        4 * BH * Sq * D * 4 + 4 * BH * Sk * D * 4 + BH * Sq * 4)
+
+
+def rel_err(ours, ref) -> float:
+    """Max abs error over the reference's largest |value|."""
+    return float((ours.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30)
 
 
 def row_errors(ours, ref):
@@ -972,6 +1035,218 @@ def phase_k1_bwd(dev):
     emit("k1_bwd_sums", **total,
          step_kernel_over_library=total["ms"] / total["library_ms"])
     return dict(max_abs_err=worst_err, bound_by=bound_by, **total)
+
+
+def phase_k1_f32(dev, ptxas):
+    """K1 and K1ᵇ on f32 inputs (``mha_fwd_f32``, ``mha_bwd_f32``, reached
+    through ``mha_fwd`` / ``mha_bwd`` as the fp32 path reaches them) at
+    ``K1_F32_SHAPES``, on seeded inputs: each against its plain version at
+    f32 (TF32 off) within K1_F32_REL_TOL, a second call bit for bit the
+    first, the launches counted by the f32 wrappers alone; device time
+    (median of 10 CUDA-event samples of K1_LAUNCHES calls) beside SDPA's
+    forward and backward at f32 on the same inputs and the bound. Then
+    the vp lengths at the B = 1 and bs2 shapes: each rank's S/vp queries
+    (vp 2 and 4) against S keys, its o, lse and dq rows bit for bit the
+    full call's, its f32 dK/dV partials summed over the ranks within
+    K1_F32_REL_TOL of the full call's, rank 0 timed. Returns the
+    ``kernels`` line's fields: the f32 K1 summed over a B = 1 forward's
+    sites, K1ᵇ over a bs2 step's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from lgm_tpu_torch.ops.mha import (_sms, launch_plan, mha_bwd,
+                                       mha_bwd_f32, mha_bwd_reference,
+                                       mha_fwd, mha_fwd_f32, mha_reference)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit("k1_f32_ptxas", mha_fwd_f32=ptxas["mha_fwd_f32"],
+         mha_bwd_f32=ptxas["mha_bwd_f32"])
+    sums = {per: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                      max_abs_err=0.0, bound_by="operations")
+            for per in ("forward", "step")}
+    shapes = []
+    for (BH, S, D), sites in K1_F32_SHAPES:
+        rng = np.random.default_rng(BH + S + D)
+        q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
+                                       dtype=torch.float32, device=dev)
+                       for _ in range(4))
+        scale = float(D) ** -0.5
+        counts = [fn.launches for fn in (mha_fwd_f32, mha_bwd_f32, mha_fwd,
+                                         mha_bwd)]
+        with torch.no_grad():
+            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+            again = mha_fwd(q, k, v, scale, return_lse=True)
+            grads = mha_bwd(q, k, v, o, do, scale, lse)
+            twice = mha_bwd(q, k, v, o, do, scale, lse)
+            torch.cuda.synchronize()
+            launched = [fn.launches - n for fn, n in zip(
+                (mha_fwd_f32, mha_bwd_f32, mha_fwd, mha_bwd), counts)]
+            bitwise = (torch.equal(again[0], o) and torch.equal(again[1], lse)
+                       and all(torch.equal(a, b) for a, b in zip(grads,
+                                                                  twice)))
+            del again, twice
+            ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
+            err = rel_err(o, ref)
+            abs_err = float((o - ref).abs().max())
+            lse_err = float((lse - ref_lse).abs().max())
+            lse_tol = K1_LSE_REL_TOL * max(1.0, float(ref_lse.abs().max()))
+            del ref, ref_lse
+            plain = mha_bwd_reference(q, k, v, o, do, scale, lse)
+            b_errs = {name: rel_err(a, b) for name, a, b in
+                      zip(("dq", "dk", "dv"), grads, plain)}
+            b_abs = max(float((a - b).abs().max())
+                        for a, b in zip(grads, plain))
+            del plain
+            torch.cuda.empty_cache()
+            if not (launched == [2, 2, 0, 0] and bitwise
+                    and err <= K1_F32_REL_TOL and lse_err <= lse_tol
+                    and max(b_errs.values()) <= K1_F32_REL_TOL
+                    and o.dtype == lse.dtype == grads[0].dtype
+                    == torch.float32):
+                raise AssertionError(
+                    f"f32 K1/K1ᵇ {BH}x{S}x{D}: launches (f32 fwd, f32 bwd, "
+                    f"bf16 fwd, bf16 bwd) {launched}, bit-equal repeat "
+                    f"{bitwise}, o {err} (tol {K1_F32_REL_TOL}), lse "
+                    f"{lse_err} (tol {lse_tol}), grads {b_errs}")
+            # In inference (B = 1) the forward writes no statistic; in
+            # training it does.
+            ms = cuda_ms(lambda: mha_fwd(q, k, v, scale,
+                                         return_lse=BH != 16),
+                         launches=K1_LAUNCHES)
+            plain_ms = cuda_ms(lambda: mha_reference(q, k, v, scale), reps=3)
+            b_ms = cuda_ms(lambda: mha_bwd(q, k, v, o, do, scale, lse),
+                           launches=K1_LAUNCHES)
+            b_plain_ms = cuda_ms(lambda: mha_bwd_reference(
+                q, k, v, o, do, scale, lse), reps=3)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], scale=scale),
+                launches=K1_LAUNCHES)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
+                                             scale=scale)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do[None], retain_graph=True),
+            launches=K1_LAUNCHES)
+        del out, qs, ks, vs
+        f_bound, f_by = k1_f32_bound(BH, S, S, D)
+        bw_bound, bw_by = k1b_f32_bound(BH, S, S, D)
+        plan = launch_plan(BH, S, S, D, _sms(dev), torch.float32)
+        emit("k1_f32", shape=[BH, S, D], sites=sites, plan=plan,
+             max_abs_err=abs_err, max_rel_err=err, tol_rel=K1_F32_REL_TOL,
+             lse_max_abs_err=lse_err, lse_tol=lse_tol, bitwise_repeat=True,
+             kernel_ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+             kernel_over_library=ms / sdpa_ms, bound_us=f_bound * 1e3,
+             bound_by=f_by, share_of_bound=f_bound / ms)
+        emit("k1_bwd_f32", shape=[BH, S, D], sites=sites, plan=plan,
+             max_abs_err=b_abs, max_rel_err=b_errs, tol_rel=K1_F32_REL_TOL,
+             bitwise_repeat=True, kernel_ms=b_ms, plain_ms=b_plain_ms,
+             library_ms=sdpa_bwd_ms, kernel_over_library=b_ms / sdpa_bwd_ms,
+             bound_us=bw_bound * 1e3, bound_by=bw_by,
+             share_of_bound=bw_bound / b_ms)
+        shapes.append(dict(shape=[BH, S, D], sites=sites, k1_ms=ms,
+                           k1b_ms=b_ms, sdpa_ms=sdpa_ms,
+                           sdpa_bwd_ms=sdpa_bwd_ms, k1_bound_ms=f_bound,
+                           k1b_bound_ms=bw_bound))
+        for per, BH_per, vals in (
+                ("forward", 16, (ms, plain_ms, sdpa_ms, f_bound, abs_err,
+                                 f_by)),
+                ("step", 32, (b_ms, b_plain_ms, sdpa_bwd_ms, bw_bound,
+                              b_abs, bw_by))):
+            if BH != BH_per:
+                continue
+            total = sums[per]
+            for key, val in zip(("ms", "plain_ms", "library_ms",
+                                 "bound_ms"), vals[:4]):
+                total[key] += sites * val
+            total["max_abs_err"] = max(total["max_abs_err"], vals[4])
+            if S == 4096:
+                total["bound_by"] = vals[5]
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+
+    vp_fwd, vp_bwd = [], []
+    for (BH, S, D), vp in (((BH, S, D), vp) for (BH, S, D), _ in
+                           K1_F32_SHAPES if BH in (16, 32)
+                           for vp in VP_DEGREES):
+        rng = np.random.default_rng(BH * S + D + vp)
+        q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (BH, S, D)),
+                                       dtype=torch.float32, device=dev)
+                       for _ in range(4))
+        scale = float(D) ** -0.5
+        n = S // vp
+        rows_equal = dict(o=True, lse=True, dq=True)
+        worst = dict(fwd=0.0, bwd=0.0)
+        with torch.no_grad():
+            o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+            dq, dk, dv = mha_bwd(q, k, v, o, do, scale, lse)
+            dk_sum, dv_sum = torch.zeros_like(dk), torch.zeros_like(dv)
+            for r in range(vp):
+                rows = slice(r * n, (r + 1) * n)
+                q_r, do_r = q[:, rows].contiguous(), do[:, rows].contiguous()
+                o_r, lse_r = mha_fwd(q_r, k, v, scale, return_lse=True)
+                ours = mha_bwd(q_r, k, v, o_r, do_r, scale, lse_r,
+                               dkv_f32=True)
+                worst["fwd"] = max(worst["fwd"], rel_err(
+                    o_r, mha_reference(q_r, k, v, scale)))
+                worst["bwd"] = max(worst["bwd"], *(
+                    rel_err(a, b) for a, b in zip(ours, mha_bwd_reference(
+                        q_r, k, v, o_r, do_r, scale, lse_r, dkv_f32=True))))
+                rows_equal["o"] &= torch.equal(o_r, o[:, rows])
+                rows_equal["lse"] &= torch.equal(lse_r, lse[:, rows])
+                rows_equal["dq"] &= torch.equal(ours[0], dq[:, rows])
+                dk_sum += ours[1]
+                dv_sum += ours[2]
+            dkv_err = max(rel_err(dk_sum, dk), rel_err(dv_sum, dv))
+            if not (all(rows_equal.values()) and worst["fwd"] <= K1_F32_REL_TOL
+                    and worst["bwd"] <= K1_F32_REL_TOL
+                    and dkv_err <= K1_F32_REL_TOL):
+                raise AssertionError(
+                    f"f32 vp{vp} {BH}x{S}x{D}: rows bit-equal {rows_equal}, "
+                    f"errors {worst}, dK/dV sum {dkv_err} (tol "
+                    f"{K1_F32_REL_TOL})")
+            q_r, do_r = q[:, :n].contiguous(), do[:, :n].contiguous()
+            o_r, lse_r = mha_fwd(q_r, k, v, scale, return_lse=True)
+            ms = cuda_ms(lambda: mha_fwd(q_r, k, v, scale, return_lse=True),
+                         launches=K1_LAUNCHES)
+            b_ms = cuda_ms(lambda: mha_bwd(q_r, k, v, o_r, do_r, scale,
+                                           lse_r, dkv_f32=True),
+                           launches=K1_LAUNCHES)
+            sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q_r[None], k[None], v[None], scale=scale),
+                launches=K1_LAUNCHES)
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q_r, k, v))
+        out = F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
+                                             scale=scale)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do_r[None], retain_graph=True),
+            launches=K1_LAUNCHES)
+        del out, qs, ks, vs
+        f_bound, f_by = k1_f32_bound(BH, n, S, D)
+        bw_bound, bw_by = k1b_f32_bound(BH, n, S, D)
+        common = dict(shape=[BH, S, D], vp=vp, Sq=n, Sk=S)
+        emit("k1_f32_vp", **common,
+             plan=launch_plan(BH, n, S, D, _sms(dev), torch.float32),
+             k1_max_rel_err=worst["fwd"], k1b_max_rel_err=worst["bwd"],
+             tol_rel=K1_F32_REL_TOL, rows_bit_equal=rows_equal,
+             dkv_sum_max_rel_err=dkv_err, k1_ms=ms, sdpa_ms=sdpa_ms,
+             k1_over_library=ms / sdpa_ms, k1_bound_us=f_bound * 1e3,
+             k1_bound_by=f_by, k1b_ms=b_ms, sdpa_bwd_ms=sdpa_bwd_ms,
+             k1b_over_library=b_ms / sdpa_bwd_ms,
+             k1b_bound_us=bw_bound * 1e3, k1b_bound_by=bw_by)
+        vp_fwd.append(dict(**common, max_rel_err=worst["fwd"], ms=ms,
+                           library_ms=sdpa_ms, bound_ms=f_bound,
+                           rows_bit_equal=rows_equal["o"]))
+        vp_bwd.append(dict(**common, max_rel_err=worst["bwd"], ms=b_ms,
+                           library_ms=sdpa_bwd_ms, bound_ms=bw_bound,
+                           dq_rows_bit_equal=rows_equal["dq"],
+                           dkv_sum_max_rel_err=dkv_err))
+        del q, k, v, do, o, lse, dq, dk, dv, dk_sum, dv_sum
+        torch.cuda.empty_cache()
+    emit("k1_f32_sums", **{f"{per}_{key}": val for per, d in sums.items()
+                           for key, val in d.items()})
+    return (dict(sums["forward"], shapes=shapes, vp_shapes=vp_fwd),
+            dict(sums["step"], vp_shapes=vp_bwd))
 
 
 def phase_k2_bwd(dev):
@@ -1727,6 +2002,163 @@ def phase_nano(dev):
         out[precision] = dict(loss=loss, gnorm=float(m["gnorm"]),
                               attention_sites=sites, attention_routes=routes)
     emit("nano_precisions", **out)
+
+
+def phase_fp32(dev, mv):
+    """LGM big at ``mixed_precision="fp32"``, the whole net in f32 and every
+    attention site on the f32 kernels: ``infer.process`` on phase
+    ``main``'s four views (f32 K1 16 a forward, K2 180, no bf16 K1, no
+    dense site), its warm forward and orbit, and the Gaussians against the
+    same forward with the plain version in place of the f32 K1; then
+    ``train.train_step`` at bs2 without the U-Net recompute, on the kernel
+    route (f32 K1 and K1ᵇ 16 each a step) and then, from the same seeded
+    weights, batches and backgrounds, on the dense route, forced in this
+    process by replacing the gate's ``kernel_takes`` (every site through
+    ``dense_attention``): step times, peak memory, and the two routes'
+    first losses held to each other (FP32_ROUTE_LOSS_RTOL); then one step
+    at the preset's own batch of 8 with its ``unet_remat`` on the kernel
+    route (f32 K1 32, K1ᵇ 16), its peak memory, and the dense route's bs 8
+    peak reckoned from the bs2 measurements (not run)."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import lgm_tpu_torch.models.unet as unet_mod
+    from lgm_tpu_torch import infer, train
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.ops import mha as mha_mod
+    from lgm_tpu_torch.ops.gsplat import flatsort as fs
+
+    counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, mha_mod.mha_fwd_f32,
+                mha_mod.mha_bwd_f32, fs.composite_fwd, fs.composite_bwd)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in counters}
+
+    def gb():  # GiB, as every phase's peak_mem_gb
+        return torch.cuda.max_memory_allocated(dev) / 2**30
+
+    opt = CONFIGS["big"].replace(mixed_precision="fp32")
+    model = infer.load_model(opt, device=str(dev))
+    sites = sum(isinstance(m, unet_mod.MVAttention) for m in model.modules())
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset()
+    with route_counts() as routes:
+        res = infer.process(opt, mv, os.path.join(work, "big_fp32"),
+                            device=str(dev), model=model)
+    launches = read()
+    infer_peak = gb()
+    expected = dict.fromkeys(launches, 0)
+    expected.update(mha_fwd_f32=sites, composite_fwd=180)
+    gs = res["gaussians"]
+    n = 4 * opt.splat_size ** 2
+    if (launches != expected or routes != {"kernel": sites, "dense": 0}
+            or gs.shape != (1, n, 14) or not np.isfinite(gs).all()):
+        raise AssertionError(
+            f"fp32 infer: launches {launches}, expected {expected}; routes "
+            f"{routes}; gaussians {gs.shape}, finite {np.isfinite(gs).all()}")
+    # The forward with the f32 plain version in place of the f32 K1.
+    with mock.patch.object(unet_mod, "mha", mha_mod.mha_reference):
+        gs_plain = infer.forward_gaussians(model, mv)
+    warm = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer.forward_gaussians(model, mv)
+        warm.append(time.perf_counter() - t0)
+    emit("fp32_infer", preset="big", mixed_precision="fp32",
+         forward_s=res["forward_s"], forward_warm_s=sorted(warm)[1],
+         orbit_s=res["orbit_s"], launches=launches, attention_routes=routes,
+         gaussians_vs_plain_attention_max=float(np.abs(gs - gs_plain).max()),
+         peak_mem_gb=infer_peak)
+    del model, res, gs, gs_plain
+    torch.cuda.empty_cache()
+
+    def run(opt, steps, dense=False):
+        """``steps`` train steps from the seeded weights, on the kernel
+        route or (``dense``) with the gate forced dense; returns the
+        steps' seconds, losses, gradient norms, launches, routes and peak
+        memory."""
+        state = train.create_state(opt, dev)
+        train_ds, _ = train.make_datasets(opt, dev)
+        gen = torch.Generator().manual_seed(42)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        with contextlib.ExitStack() as stack:
+            if dense:
+                stack.enter_context(mock.patch.object(
+                    unet_mod, "kernel_takes", lambda *a: False))
+            routes = stack.enter_context(route_counts())
+            step_s, _, losses, gnorms = timed_steps(state, train_ds, gen,
+                                                    dev, range(steps))
+        out = dict(steps_s=step_s, loss=losses, gnorm=gnorms,
+                   launches=read(), attention_routes=routes,
+                   peak_mem_gb=gb())
+        views = opt.batch_size * opt.num_views
+        inputs = (opt.batch_size * opt.num_input_views
+                  if opt.input_size != opt.output_size else 0)
+        calls = (2 if opt.unet_remat else 1) * sites * steps
+        expected = dict.fromkeys(out["launches"], 0)
+        expected.update(composite_fwd=(2 * views + inputs) * steps,
+                        composite_bwd=views * steps)
+        if not dense:
+            expected.update(mha_fwd_f32=calls, mha_bwd_f32=sites * steps)
+        want_routes = {"kernel": 0 if dense else calls,
+                       "dense": calls if dense else 0}
+        if out["launches"] != expected or routes != want_routes:
+            route = "dense" if dense else "kernel"
+            raise AssertionError(
+                f"fp32 train bs{opt.batch_size} ({route} route): launches "
+                f"{out['launches']}, expected {expected}; routes {routes}, "
+                f"expected {want_routes}")
+        del state, train_ds
+        torch.cuda.empty_cache()
+        return out
+
+    bs2 = CONFIGS["big"].replace(batch_size=2, unet_remat=False,
+                                 mixed_precision="fp32")
+    kernel = run(bs2, N_FP32_STEPS)
+    dense = run(bs2, N_FP32_STEPS, dense=True)
+    loss_diff = abs(kernel["loss"][0] - dense["loss"][0])
+    if not loss_diff <= FP32_ROUTE_LOSS_RTOL * abs(dense["loss"][0]):
+        raise AssertionError(f"fp32 bs2 loss, kernel route "
+                             f"{kernel['loss'][0]} vs dense "
+                             f"{dense['loss'][0]}")
+    for row in (kernel, dense):
+        row["step_warm_s"] = median(row["steps_s"][1:])
+    emit("fp32_train", preset="big", batch_size=2, unet_remat=False,
+         kernel=kernel, dense=dense, first_loss_rel_diff=loss_diff
+         / abs(dense["loss"][0]), loss_rtol=FP32_ROUTE_LOSS_RTOL,
+         first_gnorm_rel_diff=abs(kernel["gnorm"][0] - dense["gnorm"][0])
+         / abs(dense["gnorm"][0]),
+         peak_saved_gb=dense["peak_mem_gb"] - kernel["peak_mem_gb"],
+         step_warm_over_dense=kernel["step_warm_s"] / dense["step_warm_s"])
+    bs8 = CONFIGS["big"].replace(mixed_precision="fp32")
+    big8 = run(bs8, 1)
+    # The dense route's extra memory is the attention's O(BH S²) buffers,
+    # BH = 16 a scene: at bs 8 four times the bs2 extra (both without the
+    # recompute; with it, only one block's sites are live at a time).
+    extra2 = dense["peak_mem_gb"] - kernel["peak_mem_gb"]
+    emit("fp32_train_bs8", preset="big", batch_size=bs8.batch_size,
+         unet_remat=bs8.unet_remat, step_s=big8["steps_s"][0],
+         loss=big8["loss"][0], gnorm=big8["gnorm"][0],
+         launches=big8["launches"], attention_routes=big8["attention_routes"],
+         peak_mem_gb=big8["peak_mem_gb"],
+         dense_extra_bs2_gb=extra2,
+         dense_peak_reckoned_gb=big8["peak_mem_gb"]
+         + extra2 * bs8.batch_size / bs2.batch_size,
+         card_gb=torch.cuda.get_device_properties(dev).total_memory / 2**30)
+    return dict(infer=launches, train=kernel["launches"],
+                train_bs8=big8["launches"])
 
 
 def phase_bridge(dev):
@@ -3588,6 +4020,7 @@ def main() -> int:
     k2 = phase_k2(dev, ptxas)
     k1b = phase_k1_bwd(dev)
     vp_fwd, vp_bwd = phase_vp_kernels(dev)
+    k1f, k1bf = phase_k1_f32(dev, ptxas)
     k2b = phase_k2_bwd(dev)
     k3, k3_args, k3_out, k3_work = phase_k3(dev, ptxas)
     k3b = phase_k3_bwd(dev, k3_args, k3_out, k3_work)
@@ -3602,6 +4035,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     launches = phase_train(dev)
+    torch.cuda.empty_cache()
+    fp32_launches = phase_fp32(dev, mv)
     torch.cuda.empty_cache()
     v1_launches = phase_train_v1(dev)
     torch.cuda.empty_cache()
@@ -3679,6 +4114,24 @@ def main() -> int:
              replaces="lgm_tpu/ops/gsplat/tiled.py:286",
              launches=v1_launches["tile_composite_bwd"],
              **{k: k3b[k] for k in keys}),
+        # K1 and K1ᵇ on f32 inputs: launches of the fp32 bs2 steps (phase
+        # fp32_train), the fp32 inference and the bs 8 step beside them;
+        # the numbers of a B = 1 forward's sites (K1) and a bs2 step's
+        # (K1ᵇ), as the bf16 entries.
+        dict(name="mha_fwd_f32", route="cuda",
+             source="lgm_tpu_torch/ops/csrc/mha_fwd_f32.cu",
+             replaces="lgm_tpu/ops/mha.py:42",
+             launches=fp32_launches["train"]["mha_fwd_f32"],
+             infer_launches=fp32_launches["infer"]["mha_fwd_f32"],
+             train_bs8_launches=fp32_launches["train_bs8"]["mha_fwd_f32"],
+             shapes=k1f["shapes"], vp_shapes=k1f["vp_shapes"],
+             **{k: k1f[k] for k in keys}),
+        dict(name="mha_bwd_f32", route="cuda",
+             source="lgm_tpu_torch/ops/csrc/mha_bwd_f32.cu",
+             replaces="lgm_tpu/ops/mha.py:61",
+             launches=fp32_launches["train"]["mha_bwd_f32"],
+             train_bs8_launches=fp32_launches["train_bs8"]["mha_bwd_f32"],
+             vp_shapes=k1bf["vp_shapes"], **{k: k1bf[k] for k in keys}),
     ]
     # The pallas_v1 training path's own counts of the kernels it shares
     # with the other two paths.

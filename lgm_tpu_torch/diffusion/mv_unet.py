@@ -26,11 +26,12 @@ Attention goes through ``attention``, the counterpart of ``lgm_tpu``'s
 ``_attention`` on its ``LGM_TPU_ATTN=kres`` route: kernel K1 (``mha``)
 where ``lgm_tpu`` takes its K-resident kernel — self-attention
 (Nq == Nk), Nq % 512 == 0, Nq >= 2048 or the logits over 2e8 bytes, head
-dim <= 64 — and K1 takes the input (``kernel_takes``: bf16, D 32/64);
-``models/unet.py::dense_attention`` elsewhere (the text cross-attention,
-the Resampler, f32). For MVDream and ImageDream at 256² that is the joint
-self-attention of level 0: S = F·32² (4096 or 5120), D 64, 5 sites a
-U-Net call. The gate reads dtype and shape only, so the CPU takes the
+dim <= 64 — and K1 takes the input (``kernel_takes``: bf16 or f32, D
+32/64; at f32 the exact f32 kernels); ``models/unet.py::dense_attention``
+elsewhere (the text cross-attention, the Resampler). For MVDream and
+ImageDream at 256² that is the joint self-attention of level 0: S =
+F·32² (4096 or 5120), D 64, 5 sites a U-Net call, in bf16 or, where a
+tower computes in f32, in f32. The gate reads dtype and shape only, so the CPU takes the
 card's route.
 """
 
@@ -86,7 +87,8 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 def kernel_route(dtype: torch.dtype, B: int, heads: int, Nq: int, Nk: int,
                  hd: int) -> bool:
     """Whether ``attention`` sends [B, Nq, heads·hd] x [B, Nk, heads·hd]
-    to K1: ``lgm_tpu``'s K-resident conditions and ``kernel_takes``."""
+    to K1: ``lgm_tpu``'s K-resident conditions and ``kernel_takes`` (bf16,
+    or f32 where the tower computes in f32: the exact f32 kernels)."""
     logits_bytes = B * heads * Nq * Nk * 2
     return (Nq == Nk and Nq % 512 == 0
             and (Nq >= 2048 or logits_bytes > 2e8) and hd <= 64

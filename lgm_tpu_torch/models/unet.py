@@ -20,8 +20,9 @@ passed in, not a hard-coded 4.
 Training: gradients reach the f32 parameters through the casts to the
 compute dtype; attention goes through ``attention``, the counterpart of
 ``lgm_tpu``'s ``_attention`` gate: ``mha`` (kernels K1 and K1ᵇ on the
-card) where K1 takes the input, dense plain PyTorch elsewhere (f32
-compute, and the ``nano`` preset's head dim of 6). ``remat=True`` recomputes each down/mid/up block in the backward
+card, in bf16 or, under ``mixed_precision="fp32"``, in exact f32) where
+K1 takes the input, dense plain PyTorch elsewhere (the ``nano`` preset's
+head dim of 6). ``remat=True`` recomputes each down/mid/up block in the backward
 (``torch.utils.checkpoint``), the counterpart of ``unet_remat``
 (``lgm_tpu/models/unet.py``): it changes memory, never the numbers.
 
@@ -98,7 +99,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float, group=None) -> torch.Tensor:
     """Self-attention over [BH, S, D]: ``mha`` (K1, and K1ᵇ in the
     backward) where the kernels take this dtype and shape (``kernel_takes``:
-    bf16, D in (32, 64), S % 128 == 0, scale > 0), else
+    bf16 or f32, D in (32, 64), S % 128 == 0, scale > 0; at f32 the
+    kernels are exact f32 softmax attention, so fp32 keeps O(S) memory
+    where dense holds the [BH, S, S] logits), else
     ``dense_attention``, as ``lgm_tpu/models/unet.py::_attention`` keeps
     its kernel behind a gate and runs ``jax.nn.dot_product_attention``
     elsewhere. The choice reads dtype and shape only, never the device, so

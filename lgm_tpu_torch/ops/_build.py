@@ -138,10 +138,15 @@ def build_host(src: Path) -> Path:
 
 def short_name(mangled: str) -> str:
     """A kernel's mangled symbol as its name and integer template
-    arguments, ``mha_fwd_kernel<32,2,4>``."""
+    arguments, ``mha_fwd_kernel<32,2,4>``: the last length-prefixed name
+    in it that ends in ``kernel`` (digits inside a name included, as in
+    ``mha_bwd_dq_f32_kernel``)."""
     import re
 
-    base = re.findall(r"\d+([A-Za-z_]+kernel)", mangled)
+    base = [m.group(2)[:int(m.group(1))] for m in
+            re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled)
+            if len(m.group(2)) >= int(m.group(1))
+            and m.group(2)[:int(m.group(1))].endswith("kernel")]
     args = ",".join(re.findall(r"Li(\d+)E", mangled))
     return (base[-1] if base else mangled) + (f"<{args}>" if args else "")
 

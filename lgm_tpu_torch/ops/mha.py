@@ -8,10 +8,12 @@ all keys, no online rescaling), P rounded to the input dtype before P.V,
 f32 accumulation, output in the input dtype. With ``return_lse`` it also
 returns the f32 logsumexp L = m + log(l) of each row's scaled logits (m
 the row max, l the f32 sum of the unrounded P), ``[BH, Sq]``. On a CUDA
-tensor it launches a hand-written kernel (bf16, D in {32, 64}, Sk a
-multiple of 128, Sq of 64, scale > 0) or raises: ``csrc/mha_fwd_wgmma.cu``
-(wgmma fed by TMA, one design at both head dims); on a CPU tensor it runs
-``mha_reference``, the same function in plain PyTorch. Sq differs from
+tensor it launches a hand-written kernel (bf16 or f32, D in {32, 64}, Sk
+a multiple of 128, Sq of 64, scale > 0) or raises: at bf16
+``csrc/mha_fwd_wgmma.cu`` (wgmma fed by TMA, one design at both head
+dims), at f32 ``csrc/mha_fwd_f32.cu`` through ``mha_fwd_f32`` (3xTF32 on
+mma.sync); on a CPU tensor it runs ``mha_reference``, the same function
+in plain PyTorch. Sq differs from
 Sk under the view-sharded U-Net, where a vp rank holds the queries of its
 own views and the keys of all of them (``mha_views``); each row is then
 bit for bit the row of the Sq = Sk call, since a row's arithmetic reads
@@ -24,7 +26,18 @@ dO, dS and P rounded to the input dtype before their products, and
 returns dq = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO in the input dtype
 (dK and dV in f32 with ``dkv_f32``: a vp rank's partial sums, summed over
 the ranks before one rounding). On a CUDA tensor it launches
-``csrc/mha_bwd_wgmma.cu``; on a CPU tensor it runs ``mha_bwd_reference``.
+``csrc/mha_bwd_wgmma.cu`` at bf16, ``csrc/mha_bwd_f32.cu`` through
+``mha_bwd_f32`` at f32; on a CPU tensor it runs ``mha_bwd_reference``.
+
+At f32 nothing is rounded below f32: the kernels compute exact softmax
+attention and its exact backward at f32 grade, as the plain versions do
+at f32 (and as ``lgm_tpu`` runs f32 attention wherever its kernel does
+not run). ``lgm_tpu``'s kernel body rounds P, dO and dS to bf16 at any
+input dtype (``lgm_tpu/ops/mha.py:54,91,97,108``); the port does not at
+f32, a deliberate difference (README). The f32 kernels take their
+products by 3xTF32 (each f32 operand split into two TF32 halves, three
+tensor-core products), about 2^-22 of the scale from f32 products; one
+TF32 pass alone (2^-11) would not be f32 grade.
 ``mha`` joins the two in an autograd Function, and ``mha_views`` does so
 for a vp rank, gathering K and V over the group and summing their
 gradients back. Each kernel's design note and bound are in its source.
@@ -69,6 +82,20 @@ _WGMMA_BWD_SIGNATURES = {
         ctypes.c_int,
     ),
 }
+_F32_SIGNATURES = {
+    "mha_fwd_f32": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
+}
+_F32_BWD_SIGNATURES = {
+    "mha_bwd_f32": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
+}
 _TILE = 128  # keys per staged tile; Sk must be a multiple
 # Queries per staged tile of the dK/dV kernel where Sq is not a multiple
 # of _TILE; Sq must be a multiple.
@@ -76,12 +103,16 @@ _Q_TILE = 64
 # The design of each kernel: "wgmma" (wgmma fed by TMA,
 # ``csrc/mha_fwd_wgmma.cu`` / ``mha_bwd_wgmma.cu``, D = 32 and 64).
 ROUTES = ("wgmma",)
+# The one design of the f32 kernels (``csrc/mha_fwd_f32.cu`` /
+# ``mha_bwd_f32.cu``): 3xTF32 on mma.sync m16n8k8, at D = 32 and 64.
+F32_ROUTE = "tf32x3"
 
 
 def route(D: int) -> str:
-    """The design K1 and K1ᵇ take at head dim ``D``: "wgmma" at D = 32 and
-    64. It reads neither length, so a vp rank (Sq = S/vp) and the full
-    call run the same arithmetic.
+    """The design the bf16 K1 and K1ᵇ take at head dim ``D``: "wgmma" at D
+    = 32 and 64 (f32 inputs take ``F32_ROUTE``, the one design of the f32
+    kernels). It reads neither length, so a vp rank (Sq = S/vp) and the
+    full call run the same arithmetic.
 
     The wgmma design replaced an mma.sync one (m16n8k16 fed by cp.async)
     at both head dims, where it was faster than that design beyond its
@@ -106,10 +137,26 @@ def warpgroups(BH: int, rows: int, sms: int, D: int) -> int:
     return 2 if rows % 128 == 0 and rows // 64 * BH > sms else 1
 
 
-def launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int) -> dict:
-    """How K1 and K1ᵇ launch at this shape on ``sms`` multiprocessors: the
-    ``route``, and the consumer warpgroups a block of each kernel (K1
-    ``fwd`` and K1ᵇ's ``dq`` over the queries, ``dkv`` over the keys)."""
+def f32_warps(BH: int, rows: int, sms: int) -> int:
+    """Warps (16 rows each) a block of the f32 kernels over ``rows``
+    (queries in K1 and the dq kernel, keys in the dK/dV kernel): 8 where
+    128-row blocks divide the rows and fill every one of the ``sms``
+    multiprocessors at least once (each block reads every key or query
+    tile once, so fewer, larger blocks read less), else 4. A row's
+    arithmetic does not depend on the block."""
+    return 8 if rows % 128 == 0 and rows // 128 * BH >= sms else 4
+
+
+def launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How K1 and K1ᵇ launch at this shape and dtype on ``sms``
+    multiprocessors: the design (``route`` at bf16, ``F32_ROUTE`` at f32)
+    and a block of each kernel (K1 ``fwd`` and K1ᵇ's ``dq`` over the
+    queries, ``dkv`` over the keys): consumer warpgroups of 64 rows at
+    bf16 (``warpgroups``), warps of 16 rows at f32 (``f32_warps``)."""
+    if dtype is torch.float32:
+        return dict(route=F32_ROUTE, fwd=f32_warps(BH, Sq, sms),
+                    dq=f32_warps(BH, Sq, sms), dkv=f32_warps(BH, Sk, sms))
     return dict(route=route(D), fwd=warpgroups(BH, Sq, sms, D),
                 dq=warpgroups(BH, Sq, sms, D), dkv=warpgroups(BH, Sk, sms, D))
 
@@ -118,7 +165,9 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float, return_lse: bool = False):
     """Plain version of K1: q [BH, Sq, D], k/v [BH, Sk, D] -> [BH, Sq, D]
     in q's dtype, and with ``return_lse`` also the f32 row logsumexp
-    [BH, Sq]."""
+    [BH, Sq]. P is rounded to v's dtype before P·V: bf16 on the bf16
+    route, no rounding at f32, where this is exact softmax attention (the
+    plain version of the f32 kernel too)."""
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -139,7 +188,8 @@ def mha_bwd_reference(q, k, v, o, do, scale: float, lse,
     statistics read from the forward's ``lse``: P = exp(s − L) normalized
     in f32; dO, dS and P rounded to the input dtype before their products
     (bf16 on the card; no rounding at f32, where this is the exact
-    softmax-attention backward); f32 accumulation."""
+    softmax-attention backward and the plain version of the f32 kernel);
+    f32 accumulation."""
     dt = q.dtype
     qf, kf = q.float(), k.float()
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -158,28 +208,34 @@ def mha_bwd_reference(q, k, v, o, do, scale: float, lse,
 
 def kernel_takes(dtype: torch.dtype, Sq: int, Sk: int, D: int,
                  scale: float) -> bool:
-    """Whether K1 and K1ᵇ take attention of this dtype and shape: bf16, D
-    in (32, 64), Sk keys a multiple of 128, Sq queries a positive multiple
-    of 64 and scale > 0 (what the wrappers check on a CUDA tensor)."""
-    return (dtype is torch.bfloat16 and D in (32, 64) and Sk % _TILE == 0
+    """Whether K1 and K1ᵇ take attention of this dtype and shape: bf16 (the
+    wgmma kernels) or f32 (the 3xTF32 kernels, exact f32 softmax
+    attention), D in (32, 64), Sk keys a multiple of 128, Sq queries a
+    positive multiple of 64 and scale > 0 (what the wrappers check on a
+    CUDA tensor)."""
+    return (dtype in (torch.bfloat16, torch.float32) and D in (32, 64) and Sk % _TILE == 0
             and Sq > 0 and Sq % _Q_TILE == 0 and scale > 0)
 
 
-def _check_kernel_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
-                         named, scale: float, lse=None) -> None:
+def _check_kernel_inputs(what: str, dt: torch.dtype, q: torch.Tensor,
+                         k: torch.Tensor, named, scale: float,
+                         lse=None) -> None:
     """``named`` are (name, tensor) pairs, each of q's shape ([BH, Sq,
-    D]) or of k's ([BH, Sk, D]) as its name says (k, v, dk, dv)."""
+    D]) or of k's ([BH, Sk, D]) as its name says (k, v, dk, dv), and all
+    of the kernel's dtype ``dt``: bf16 throughout or f32 throughout. The
+    statistic is f32 in both."""
     dev = q.device
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     for name, x in named:
         shape = (BH, Sk, D) if name in ("k", "v") else (BH, Sq, D)
-        if x.dtype is not torch.bfloat16 or tuple(x.shape) != shape \
+        if x.dtype is not dt or tuple(x.shape) != shape \
                 or x.device != dev or not x.is_contiguous() \
                 or x.data_ptr() % 16:
             raise ValueError(
-                f"{what}: {name} must be a contiguous, 16-byte aligned bf16 "
-                f"tensor of shape {shape} on {dev}, got {x.dtype} "
+                f"{what}: {name} must be a contiguous, 16-byte aligned "
+                f"{dt} tensor of shape {shape} on {dev} (every tensor of a "
+                f"call bf16, or every one f32), got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}")
     if lse is not None and (lse.dtype is not torch.float32
                             or lse.shape != (BH, Sq) or lse.device != dev
@@ -190,7 +246,8 @@ def _check_kernel_inputs(what: str, q: torch.Tensor, k: torch.Tensor,
             f"{lse.device}")
     if not kernel_takes(q.dtype, Sq, Sk, D, scale):
         raise ValueError(
-            f"{what} kernel takes D in (32, 64), Sk % {_TILE} == 0, "
+            f"{what} kernel takes bf16 or f32, D in (32, 64), "
+            f"Sk % {_TILE} == 0, "
             f"Sq % {_Q_TILE} == 0 and scale > 0, got D={D}, Sq={Sq}, "
             f"Sk={Sk}, scale={scale}")
 
@@ -200,22 +257,33 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float, return_lse: bool = False):
-    """K1 on a CUDA tensor, ``mha_reference`` on a CPU tensor. Returns o,
-    or (o, lse) with ``return_lse`` (the kernel writes lse only then)."""
+def _cuda_call(what: str, q, k, v) -> torch.device:
+    """The device of a kernel call on CUDA tensors; raises on another
+    device, and where autograd records the call (``mha`` is the entry with
+    a gradient)."""
     dev = q.device
-    if dev.type == "cpu":
-        return mha_reference(q, k, v, scale, return_lse)
     if dev.type != "cuda":
-        raise ValueError(f"mha_fwd: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "mha_fwd has no gradient of its own: call mha(), whose backward "
+            f"{what} has no gradient of its own: call mha(), whose backward "
             "is K1ᵇ")
-    _check_kernel_inputs("mha_fwd", q, k, (("q", q), ("k", k), ("v", v)),
-                         scale)
+    return dev
+
+
+def mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float, return_lse: bool = False):
+    """K1 on a CUDA tensor, ``mha_reference`` on a CPU tensor. Returns o,
+    or (o, lse) with ``return_lse`` (the kernel writes lse only then). f32
+    inputs go to ``mha_fwd_f32``; nothing is converted to bf16."""
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, scale, return_lse)
+    if q.dtype is torch.float32:
+        return mha_fwd_f32(q, k, v, scale, return_lse)
+    dev = _cuda_call("mha_fwd", q, k, v)
+    _check_kernel_inputs("mha_fwd", torch.bfloat16, q, k,
+                         (("q", q), ("k", k), ("v", v)), scale)
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     o = torch.empty_like(q)
@@ -240,17 +308,50 @@ mha_fwd.launches = 0
 mha_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+def mha_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, return_lse: bool = False):
+    """K1 on f32 CUDA tensors (``csrc/mha_fwd_f32.cu``), ``mha_reference``
+    on CPU tensors: exact f32 softmax attention, o f32 and with
+    ``return_lse`` the f32 row statistic. Counts its own launches."""
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, scale, return_lse)
+    dev = _cuda_call("mha_fwd_f32", q, k, v)
+    _check_kernel_inputs("mha_fwd_f32", torch.float32, q, k,
+                         (("q", q), ("k", k), ("v", v)), scale)
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    o = torch.empty_like(q)
+    lse = (torch.empty(BH, Sq, dtype=torch.float32, device=dev)
+           if return_lse else None)
+    lib = _build.load("mha_fwd_f32", _F32_SIGNATURES)
+    err = lib.mha_fwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), BH, Sq, Sk, D, float(scale),
+        f32_warps(BH, Sq, _sms(dev)), torch.cuda.current_stream(dev)
+        .cuda_stream, dev.index)
+    _build.check(lib, err, "mha_fwd_f32")
+    mha_fwd_f32.launches += 1
+    return (o, lse) if return_lse else o
+
+
+mha_fwd_f32.launches = 0
+
+
 def mha_bwd(q, k, v, o, do, scale: float, lse, dkv_f32: bool = False):
     """K1ᵇ on CUDA tensors, ``mha_bwd_reference`` on CPU tensors; ``lse``
     is the forward's ``[BH, Sq]`` f32 statistic. Returns (dq, dk, dv), dk
-    and dv in f32 with ``dkv_f32``."""
+    and dv in f32 with ``dkv_f32``. f32 inputs go to ``mha_bwd_f32``,
+    whose outputs are all f32 (so ``dkv_f32`` changes nothing there)."""
     dev = q.device
     if dev.type == "cpu":
         return mha_bwd_reference(q, k, v, o, do, scale, lse, dkv_f32)
+    if q.dtype is torch.float32:
+        return mha_bwd_f32(q, k, v, o, do, scale, lse)
     if dev.type != "cuda":
         raise ValueError(f"mha_bwd: unsupported device {dev}")
-    _check_kernel_inputs("mha_bwd", q, k, (("q", q), ("k", k), ("v", v),
-                                           ("o", o), ("do", do)), scale, lse)
+    _check_kernel_inputs("mha_bwd", torch.bfloat16, q, k,
+                         (("q", q), ("k", k), ("v", v), ("o", o),
+                          ("do", do)), scale, lse)
     BH, Sq, D = q.shape
     Sk = k.shape[1]
     dq = torch.empty_like(q)
@@ -276,6 +377,41 @@ def mha_bwd(q, k, v, o, do, scale: float, lse, dkv_f32: bool = False):
 
 mha_bwd.launches = 0
 mha_bwd.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def mha_bwd_f32(q, k, v, o, do, scale: float, lse):
+    """K1ᵇ on f32 CUDA tensors (``csrc/mha_bwd_f32.cu``, a dq kernel and a
+    dK/dV kernel, no atomics), ``mha_bwd_reference`` on CPU tensors: the
+    exact f32 softmax-attention backward from the forward's ``[BH, Sq]``
+    f32 statistic. Returns f32 (dq, dk, dv); a vp rank's dk and dv are its
+    f32 partial sums. Counts its own launches."""
+    dev = q.device
+    if dev.type == "cpu":
+        return mha_bwd_reference(q, k, v, o, do, scale, lse)
+    if dev.type != "cuda":
+        raise ValueError(f"mha_bwd_f32: unsupported device {dev}")
+    _check_kernel_inputs("mha_bwd_f32", torch.float32, q, k,
+                         (("q", q), ("k", k), ("v", v), ("o", o),
+                          ("do", do)), scale, lse)
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # rowsum(dO∘O), written by the dq kernel and read by the dK/dV kernel.
+    drow = torch.empty(BH, Sq, dtype=torch.float32, device=dev)
+    sms = _sms(dev)
+    lib = _build.load("mha_bwd_f32", _F32_BWD_SIGNATURES)
+    err = lib.mha_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        drow.data_ptr(), BH, Sq, Sk, D, float(scale), f32_warps(BH, Sq, sms),
+        f32_warps(BH, Sk, sms), torch.cuda.current_stream(dev).cuda_stream,
+        dev.index)
+    _build.check(lib, err, "mha_bwd_f32")
+    mha_bwd_f32.launches += 1
+    return dq, dk, dv
+
+
+mha_bwd_f32.launches = 0
 
 
 class _MHA(torch.autograd.Function):

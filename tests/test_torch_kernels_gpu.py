@@ -15,7 +15,8 @@ import torch
 
 from lgm_tpu_torch.ops.gsplat import flatsort as fs
 from lgm_tpu_torch.ops.gsplat import tiled as tt
-from lgm_tpu_torch.ops.mha import (mha, mha_bwd, mha_bwd_reference, mha_fwd,
+from lgm_tpu_torch.ops.mha import (mha, mha_bwd, mha_bwd_f32,
+                                   mha_bwd_reference, mha_fwd, mha_fwd_f32,
                                    mha_reference)
 from lgm_tpu_torch.utils import camera
 
@@ -109,9 +110,14 @@ def test_mha_fwd_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 128, 48, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         mha_fwd(x, x, x, 1.0)  # D = 48
-    y = torch.zeros(1, 128, 32, device=cuda)
+    y = torch.zeros(1, 128, 32, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
-        mha_fwd(y, y, y, 1.0)  # f32
+        mha_fwd(y, y, y, 1.0)  # f16
+    f = torch.zeros(1, 128, 32, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(x[..., :32].contiguous(), f, f, 1.0)  # bf16 q, f32 k and v
+    with pytest.raises(ValueError):
+        mha_fwd(f, f, x[..., :32].contiguous(), 1.0)  # f32 q and k, bf16 v
     w = torch.zeros(1, 192, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         mha_fwd(w, w, w, 1.0)  # S % 128
@@ -228,9 +234,15 @@ def test_mha_bwd_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 128, 48, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         mha_bwd(x, x, x, x, x, 1.0, lse)  # D = 48
-    y = torch.zeros(1, 128, 32, device=cuda)
+    y = torch.zeros(1, 128, 32, dtype=torch.float16, device=cuda)
     with pytest.raises(ValueError):
-        mha_bwd(y, y, y, y, y, 1.0, lse)  # f32
+        mha_bwd(y, y, y, y, y, 1.0, lse)  # f16
+    f = torch.zeros(1, 128, 32, device=cuda)
+    b = torch.zeros(1, 128, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        mha_bwd(b, b, b, b, f, 1.0, lse)  # bf16 with an f32 dO
+    with pytest.raises(ValueError):
+        mha_bwd(f, f, f, b, f, 1.0, lse)  # f32 with a bf16 o
     z = torch.zeros(1, 192, 32, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         mha_bwd(z, z, z, z, z, 1.0, torch.zeros(1, 192, device=cuda))  # S % 128
@@ -1247,3 +1259,189 @@ def test_tiny_conversion_on_the_card(cuda, tmp_path):
     assert uv is not None and tex[:8] == b"\x89PNG\r\n\x1a\n"
     for stage in ("nerf", "mesh", "texture"):
         assert np.isfinite(conv.losses[stage]).all()
+
+
+# K1 and K1ᵇ on f32 inputs (csrc/mha_fwd_f32.cu, mha_bwd_f32.cu: 3xTF32 on
+# mma.sync), held to the plain versions at f32, exact softmax attention
+# with f32 matmuls (TF32 off). The kernels' products are about 2^-22 of
+# |a b| from f32 products and the sums run in other orders: o, dq, dk and
+# dv within 1e-5 of their largest |value|; the statistic as the bf16
+# kernel's (1e-5 of max(1, |L|)). LGM big's three site shapes at B = 1
+# (BH 16) and bs2 (BH 32), the preset's batch of 8 at S 4096 (BH 128), and
+# two small odd ones.
+K1_F32_REL_TOL = 1e-5
+MHA_F32_SHAPES = [(16, 4096, 32), (32, 4096, 32), (16, 1024, 64),
+                  (32, 1024, 64), (16, 256, 64), (32, 256, 64),
+                  (128, 4096, 32), (3, 512, 64), (3, 256, 32)]
+
+
+def _f32(rng, shape, dev):
+    return torch.as_tensor(rng.normal(0, 1, shape), dtype=torch.float32,
+                           device=dev)
+
+
+@pytest.fixture
+def full_f32(cuda, monkeypatch):
+    """The plain versions' matmuls in full f32 (PyTorch's default, stated)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return cuda
+
+
+@pytest.mark.parametrize("BH,S,D", MHA_F32_SHAPES)
+def test_mha_f32_kernels_match_plain(full_f32, BH, S, D):
+    """f32 K1 (o and its statistic) and K1ᵇ against their plain versions;
+    outputs f32; a second call gives the same bits; the f32 wrappers count
+    the launches, the bf16 ones do not move."""
+    cuda = full_f32
+    rng = np.random.default_rng(BH + S + D)
+    q, k, v, do = (_f32(rng, (BH, S, D), cuda) for _ in range(4))
+    scale = D ** -0.5
+    counts = (mha_fwd_f32.launches, mha_bwd_f32.launches, mha_fwd.launches,
+              mha_bwd.launches)
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+        again = mha_fwd(q, k, v, scale, return_lse=True)
+        ref, ref_lse = mha_reference(q, k, v, scale, return_lse=True)
+        grads = mha_bwd(q, k, v, o, do, scale, lse)
+        twice = mha_bwd(q, k, v, o, do, scale, lse)
+        plain = mha_bwd_reference(q, k, v, o, do, scale, lse)
+    torch.cuda.synchronize()
+    assert o.dtype == lse.dtype == torch.float32 and lse.shape == (BH, S)
+    _close(o, ref, K1_F32_REL_TOL)
+    _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    for a, b, c in zip(grads, plain, twice):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        _close(a, b, K1_F32_REL_TOL)
+        assert torch.equal(a, c)
+    assert (mha_fwd_f32.launches, mha_bwd_f32.launches, mha_fwd.launches,
+            mha_bwd.launches) == (counts[0] + 2, counts[1] + 2, *counts[2:])
+
+
+@pytest.mark.parametrize("BH,S,D,vp", MHA_VP_SHAPES)
+def test_mha_f32_kernels_at_a_vp_ranks_lengths(full_f32, BH, S, D, vp):
+    """Each rank's f32 K1 (Sq = S/vp, Sk = S) and K1ᵇ (f32 dK/dV partials)
+    against their plain versions; the ranks' o, lse and dq rows bit for
+    bit the full-length call's; the sum of the ranks' dK and dV within
+    1e-5 of the full call's largest |value| (f32 sums grouped otherwise)."""
+    cuda = full_f32
+    rng = np.random.default_rng(S + D + vp)
+    q, k, v, do = (_f32(rng, (BH, S, D), cuda) for _ in range(4))
+    scale = D ** -0.5
+    n = S // vp
+    with torch.no_grad():
+        o, lse = mha_fwd(q, k, v, scale, return_lse=True)
+        dq, dk, dv = mha_bwd(q, k, v, o, do, scale, lse)
+        dk_sum = torch.zeros_like(dk)
+        dv_sum = torch.zeros_like(dv)
+        for r in range(vp):
+            rows = slice(r * n, (r + 1) * n)
+            q_r, do_r = q[:, rows].contiguous(), do[:, rows].contiguous()
+            o_r, lse_r = mha_fwd(q_r, k, v, scale, return_lse=True)
+            ref, ref_lse = mha_reference(q_r, k, v, scale, return_lse=True)
+            _close(o_r, ref, K1_F32_REL_TOL)
+            _close(lse_r, ref_lse, K1_LSE_REL_TOL, 1.0)
+            assert torch.equal(o_r, o[:, rows])
+            assert torch.equal(lse_r, lse[:, rows])
+            ours = mha_bwd(q_r, k, v, o_r, do_r, scale, lse_r, dkv_f32=True)
+            ref = mha_bwd_reference(q_r, k, v, o_r, do_r, scale, lse_r,
+                                    dkv_f32=True)
+            for a, b in zip(ours, ref):
+                assert a.dtype == torch.float32 and a.shape == b.shape
+                _close(a, b, K1_F32_REL_TOL)
+            assert torch.equal(ours[0], dq[:, rows])
+            dk_sum += ours[1]
+            dv_sum += ours[2]
+    torch.cuda.synchronize()
+    _close(dk_sum, dk, K1_F32_REL_TOL)
+    _close(dv_sum, dv, K1_F32_REL_TOL)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("BH,Sq,Sk", [(16, 1024, 1024), (2, 192, 256),
+                                      (4, 128, 512)])
+def test_mha_f32_kernels_agree_across_block_shapes(full_f32, BH, Sq, Sk, D,
+                                                   monkeypatch):
+    """The f32 kernels' blocks of 4 and 8 warps give the same bits: a row's
+    arithmetic does not depend on the block."""
+    import lgm_tpu_torch.ops.mha as mha_mod
+
+    cuda = full_f32
+    rng = np.random.default_rng(BH * Sq + Sk + D)
+    q, do = (_f32(rng, (BH, Sq, D), cuda) for _ in range(2))
+    k, v = (_f32(rng, (BH, Sk, D), cuda) for _ in range(2))
+    outs = []
+    with torch.no_grad():
+        for nw in (4, 8):
+            monkeypatch.setattr(
+                mha_mod, "f32_warps",
+                lambda BH, rows, sms, nw=nw: nw if rows % (16 * nw) == 0
+                else 4)
+            o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
+            outs.append((o, lse, *mha_bwd(q, k, v, o, do, 0.125, lse)))
+    torch.cuda.synchronize()
+    ref, ref_lse = mha_reference(q, k, v, 0.125, return_lse=True)
+    _close(outs[0][0], ref, K1_F32_REL_TOL)
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+
+
+def test_mha_f32_autograd_launches_both_kernels(full_f32):
+    """mha on f32 tensors that record a graph: f32 K1 forward, f32 K1ᵇ
+    backward, the gradients the plain versions' and autograd's own
+    softmax-attention gradient."""
+    cuda = full_f32
+    rng = np.random.default_rng(4)
+    q, k, v = (_f32(rng, (2, 512, 64), cuda).requires_grad_()
+               for _ in range(3))
+    g = _f32(rng, (2, 512, 64), cuda)
+    f0, b0 = mha_fwd_f32.launches, mha_bwd_f32.launches
+    out = mha(q, k, v, 0.125)
+    lse = out.grad_fn.saved_tensors[4]
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (mha_fwd_f32.launches, mha_bwd_f32.launches) == (f0 + 1, b0 + 1)
+    assert out.dtype == q.grad.dtype == torch.float32
+    with torch.no_grad():
+        o, ref_lse = mha_reference(q, k, v, 0.125, return_lse=True)
+        _close(lse, ref_lse, K1_LSE_REL_TOL, 1.0)
+        ref = mha_bwd_reference(q, k, v, o, g, 0.125, ref_lse)
+    qa, ka, va = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    (torch.softmax(qa @ ka.transpose(1, 2) * 0.125, dim=-1) @ va
+     * g).sum().backward()
+    for a, b, c in zip((q.grad, k.grad, v.grad), ref,
+                       (qa.grad, ka.grad, va.grad)):
+        _close(a, b, K1_F32_REL_TOL)
+        _close(a, c, K1_F32_REL_TOL)
+
+
+def test_mha_f32_kernels_refuse_what_they_do_not_take(cuda):
+    """The f32 wrappers raise on what the f32 kernels do not take: another
+    dtype, a tensor of another dtype in the call, D 48, Sk not a multiple
+    of 128, Sq not a multiple of 64; nothing is converted or sent dense."""
+    f = torch.zeros(1, 128, 32, device=cuda)
+    lse = torch.zeros(1, 128, device=cuda)
+    b = f.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        mha_fwd_f32(b, b, b, 1.0)  # bf16
+    with pytest.raises(ValueError):
+        mha_fwd_f32(f, b, f, 1.0)  # a bf16 k
+    with pytest.raises(ValueError):
+        mha_bwd_f32(f, f, f, f, b, 1.0, lse)  # a bf16 dO
+    with pytest.raises(ValueError):
+        mha_bwd_f32(f, f, f, f, f, 1.0, lse.double())  # lse not f32
+    x = torch.zeros(1, 128, 48, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(x, x, x, 1.0)  # D = 48
+    with pytest.raises(ValueError):
+        mha_bwd(x, x, x, x, x, 1.0, lse)
+    w = torch.zeros(1, 192, 32, device=cuda)
+    with pytest.raises(ValueError):
+        mha_fwd(f[:, :64].contiguous(), w, w, 1.0)  # Sk % 128
+    with pytest.raises(ValueError):
+        mha_fwd(f[:, :32].contiguous(), f, f, 1.0)  # Sq % 64
+    with pytest.raises(ValueError):
+        mha_fwd(f, f, f, -1.0)  # scale <= 0
+    z = f.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        mha_fwd(z, z, z, 1.0)

@@ -1,7 +1,8 @@
 """Port's attention (K1's and K1ᵇ's plain versions, taken by mha_fwd and
 mha_bwd on CPU tensors) vs lgm_tpu's K-resident Pallas kernels and their
 VJP, run in interpret mode: at equal query and key lengths, and at a vp
-rank's S/vp queries against S keys."""
+rank's S/vp queries against S keys; in bf16, and in f32, where the plain
+versions (those of the f32 kernels) are exact softmax attention."""
 
 import numpy as np
 import pytest
@@ -11,9 +12,11 @@ import jax.numpy as jnp
 import torch
 
 from lgm_tpu.ops.mha import mha_kresident
-from lgm_tpu_torch.ops.mha import (ROUTES, kernel_takes, launch_plan, mha,
-                                   mha_bwd, mha_bwd_reference, mha_fwd,
-                                   mha_reference, route, warpgroups)
+from lgm_tpu_torch.ops.mha import (F32_ROUTE, ROUTES, f32_warps,
+                                   kernel_takes, launch_plan, mha, mha_bwd,
+                                   mha_bwd_f32, mha_bwd_reference, mha_fwd,
+                                   mha_fwd_f32, mha_reference, route,
+                                   warpgroups)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -185,7 +188,11 @@ def test_kernel_takes_unequal_lengths():
                          (256, 256, True), (32, 256, False),
                          (64, 192, False), (0, 256, False)):
         assert kernel_takes(torch.bfloat16, Sq, Sk, 64, 0.125) == want
-    assert not kernel_takes(torch.float32, 64, 256, 64, 0.125)
+        assert kernel_takes(torch.float32, Sq, Sk, 64, 0.125) == want
+    # f32 is taken (the exact f32 kernels); f16 and f64 are not.
+    assert kernel_takes(torch.float32, 64, 256, 64, 0.125)
+    assert not kernel_takes(torch.float16, 64, 256, 64, 0.125)
+    assert not kernel_takes(torch.float64, 64, 256, 64, 0.125)
 
 
 def test_mha_bwd_reference_f32_partials_are_the_unrounded_dkv():
@@ -280,3 +287,124 @@ def test_cpu_tensors_take_the_plain_versions(D):
                       mha_fwd.route_launches, mha_bwd.route_launches)
     assert counts[0] == counts[1] == 0
     assert set(counts[2].values()) == set(counts[3].values()) == {0}
+
+
+def _exact_attention_f64(q, k, v, do, scale):
+    """Softmax attention and its backward in f64 numpy: o, dq, dk, dv."""
+    q, k, v, do = (np.asarray(x, np.float64) for x in (q, k, v, do))
+    s = np.einsum("bqd,bkd->bqk", q, k) * scale
+    p = np.exp(s - s.max(axis=-1, keepdims=True))
+    p /= p.sum(axis=-1, keepdims=True)
+    o = p @ v
+    dp = do @ v.transpose(0, 2, 1)
+    ds = p * (dp - (do * o).sum(axis=-1, keepdims=True))
+    return (o, ds @ k * scale, ds.transpose(0, 2, 1) @ q * scale,
+            p.transpose(0, 2, 1) @ do)
+
+
+def _row_err(ours, ref):
+    """The worst row's max error over that row's largest |value|."""
+    return float((np.abs(ours - ref).max(axis=-1)
+                  / np.abs(ref).max(axis=-1)).max())
+
+
+@pytest.mark.parametrize("BH,Sq,Sk,D", [(2, 256, 256, 32), (4, 128, 512, 64),
+                                        (2, 512, 512, 64)])
+def test_f32_plain_versions_are_exact_attention(BH, Sq, Sk, D):
+    """At f32 the plain versions of K1 and K1ᵇ (what the f32 kernels are
+    held to on the card) are exact softmax attention and its backward: o,
+    dq, dk and dv within 1e-5 of each row's largest |value| of f64 numpy
+    (f32 products and sums in other orders), at equal lengths and at a vp
+    rank's Sq < Sk; the statistic is the f64 row logsumexp to 1e-5."""
+    rng = np.random.default_rng(BH * Sq + Sk + D)
+    q, do = (rng.normal(0, 1, (BH, Sq, D)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(0, 1, (BH, Sk, D)).astype(np.float32)
+            for _ in range(2))
+    scale = float(D) ** -0.5
+    tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
+    assert kernel_takes(torch.float32, Sq, Sk, D, scale)
+    o, lse = mha_reference(tq, tk, tv, scale, return_lse=True)
+    grads = mha_bwd_reference(tq, tk, tv, o, tdo, scale, lse)
+    want = _exact_attention_f64(q, k, v, do, scale)
+    for name, ours, ref in zip(("o", "dq", "dk", "dv"), (o, *grads), want):
+        assert ours.dtype == torch.float32
+        assert _row_err(ours.numpy(), ref) <= 1e-5, name
+    s = np.einsum("bqd,bkd->bqk", q.astype(np.float64),
+                  k.astype(np.float64)) * scale
+    m = s.max(axis=-1)
+    np.testing.assert_allclose(
+        lse.numpy(), m + np.log(np.exp(s - m[..., None]).sum(axis=-1)),
+        rtol=1e-5)
+    # f32 throughout: dK and dV are the same f32 values with dkv_f32.
+    for a, b in zip(grads, mha_bwd_reference(tq, tk, tv, o, tdo, scale, lse,
+                                             dkv_f32=True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,D", [(256, 32), (512, 64)])
+def test_f32_plain_versions_match_kresident(S, D):
+    """The f32 plain versions against lgm_tpu's mha_kresident and its VJP
+    on the same f32 inputs (interpret mode), which return f32. lgm_tpu's
+    kernel body rounds P to bf16 before P.V, and dO, dS and P before their
+    products, at any input dtype (lgm_tpu/ops/mha.py:54,91,97,108); the
+    port keeps them in f32 (README). So the tolerance is set by those
+    roundings, not by f32: o within 2^-8 of its largest |value| (one bf16
+    step of P; 1.3e-3 measured at these shapes), dq, dk and dv within 2^-6
+    (dO, dS and P each rounded, dS after the cancellation dP - D; up to
+    5.7e-3 measured)."""
+    rng = np.random.default_rng(S + D)
+    q, k, v, do = (rng.normal(0, 1, (2, S, D)).astype(np.float32)
+                   for _ in range(4))
+    scale = float(D) ** -0.5
+    o_jax, vjp = jax.vjp(lambda a, b, c: mha_kresident(a, b, c, scale),
+                         *(jnp.asarray(x) for x in (q, k, v)))
+    assert o_jax.dtype == jnp.float32
+    ref = [np.asarray(o_jax)] + [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, do))
+    o, lse = mha_fwd(tq, tk, tv, scale, return_lse=True)
+    grads = mha_bwd(tq, tk, tv, o, tdo, scale, lse)
+    for name, ours, want, tol in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                                     ref, (2.0 ** -8,) + (2.0 ** -6,) * 3):
+        assert ours.dtype == torch.float32
+        err = np.abs(ours.numpy() - want).max()
+        assert err <= tol * np.abs(want).max(), (name, err)
+
+
+def test_f32_launch_plan_is_the_warps():
+    """f32 inputs take the one design of the f32 kernels, blocks of 8 warps
+    (128 rows) where those fill every SM at least once, else 4 (64 rows),
+    over the queries (fwd, dq) and the keys (dkv)."""
+    for BH, S, vp in ((16, 4096, 1), (32, 4096, 2), (16, 256, 1),
+                      (32, 1024, 4), (128, 4096, 1), (16, 256, 4)):
+        plan = launch_plan(BH, S // vp, S, 32, H100_SMS, torch.float32)
+        assert plan["route"] == F32_ROUTE
+        for key, rows in (("fwd", S // vp), ("dq", S // vp), ("dkv", S)):
+            want = 8 if rows % 128 == 0 and rows // 128 * BH >= H100_SMS \
+                else 4
+            assert plan[key] == f32_warps(BH, rows, H100_SMS) == want
+            assert rows % (16 * want) == 0
+
+
+def test_f32_wrappers_take_plain_versions_on_cpu_and_count_nothing():
+    """On CPU tensors the f32 wrappers are the plain versions and count no
+    launch; mha carries f32 through its autograd Function unchanged."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.as_tensor(rng.normal(0, 1, (2, s, 32)),
+                                   dtype=torch.float32)
+                   for s in (64, 128, 128, 64))
+    counts = (mha_fwd_f32.launches, mha_bwd_f32.launches, mha_fwd.launches,
+              mha_bwd.launches)
+    o, lse = mha_fwd_f32(q, k, v, 0.2, return_lse=True)
+    ref, ref_lse = mha_reference(q, k, v, 0.2, return_lse=True)
+    assert torch.equal(o, ref) and torch.equal(lse, ref_lse)
+    for a, b in zip(mha_bwd_f32(q, k, v, o, do, 0.2, lse),
+                    mha_bwd_reference(q, k, v, o, do, 0.2, lse)):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+    out = mha(qs, ks, vs, 0.2)
+    out.backward(do)
+    assert out.dtype == torch.float32 and torch.equal(out.detach(), ref)
+    assert all(x.grad.dtype == torch.float32 for x in (qs, ks, vs))
+    assert counts == (mha_fwd_f32.launches, mha_bwd_f32.launches,
+                      mha_fwd.launches, mha_bwd.launches) == (0, 0, 0, 0)

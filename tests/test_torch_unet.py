@@ -1,11 +1,12 @@
 """Port's U-Net and LGM forward vs the reference torch goldens and vs
 lgm_tpu's Flax modules (weights passed through flax_params_to_state_dict).
 
-All at f32 on the CPU, where attention takes the dense route (the gate's
-choice at f32, on the card too). Goldens use test_golden_unet.py's
-tolerances (1e-4 of the output scale). Also the attention gate itself:
-its choice of route, and the dense route against lgm_tpu's dense
-attention."""
+All at f32 on the CPU, where these small U-Nets' attention (head dims
+below 32) takes the dense route, as on the card. Goldens use
+test_golden_unet.py's tolerances (1e-4 of the output scale). Also the
+attention gate itself: its choice of route (LGM big at fp32 and bf16
+sends every site to the kernels), and the dense route against lgm_tpu's
+dense attention."""
 
 import os
 
@@ -156,12 +157,13 @@ def test_activate_gaussians_matches_jax():
 
 
 # (dtype, S, D, route): the 16 LGM-big sites in bf16 (S 4096 / 1024 / 256
-# at D 32 / 64 / 64), the same in fp32, nano's head dim of 6, and the
-# shapes K1 refuses.
+# at D 32 / 64 / 64), the same in fp32 (the f32 kernels), a dtype the
+# kernels refuse (f16), nano's head dim of 6, and the shapes K1 refuses.
 _ROUTES = [
     (torch.bfloat16, 4096, 32, "kernel"), (torch.bfloat16, 1024, 64, "kernel"),
-    (torch.bfloat16, 256, 64, "kernel"), (torch.float32, 4096, 32, "dense"),
-    (torch.float32, 256, 64, "dense"), (torch.bfloat16, 256, 6, "dense"),
+    (torch.bfloat16, 256, 64, "kernel"), (torch.float32, 4096, 32, "kernel"),
+    (torch.float32, 256, 64, "kernel"), (torch.float16, 256, 64, "dense"),
+    (torch.bfloat16, 256, 6, "dense"),
     (torch.bfloat16, 192, 32, "dense"), (torch.bfloat16, 256, 48, "dense"),
 ]
 
@@ -196,7 +198,11 @@ _DENSE = [("float32", 2, 256, 4, 32, 1e-5), ("float32", 1, 64, 16, 6, 1e-5),
 def test_dense_attention_matches_jax(dtype, B, S, H, D, tol):
     """The dense route against lgm_tpu's ``_attention`` on the CPU, which
     is ``jax.nn.dot_product_attention`` there: forward and the gradient
-    of a seeded linear loss, on seeded inputs, through the port's gate."""
+    of a seeded linear loss, on seeded inputs, through ``dense_attention``
+    and through the port's gate. The gate takes the dense route at D 6
+    and, since the f32 kernels, the kernel route at f32 D 32 (K1's and
+    K1ᵇ's plain versions on CPU tensors: exact f32 attention), held to
+    the same tolerance."""
     rng = np.random.default_rng(S + D)
     q, k, v, g = (rng.normal(0, 1, (B, S, H, D)).astype(np.float32)
                   for _ in range(4))
@@ -215,17 +221,44 @@ def test_dense_attention_matches_jax(dtype, B, S, H, D, tol):
         return torch.as_tensor(x).to(tdt).transpose(1, 2).reshape(
             B * H, S, D).contiguous().requires_grad_()
 
-    tq, tk, tv = (heads(x) for x in (q, k, v))
-    assert not kernel_takes(tdt, S, S, D, D ** -0.5)
-    o = attention(tq, tk, tv, D ** -0.5)
-    assert o.dtype == tdt
-    o.float().backward(heads(g).detach().float())
-
     def back(x):  # [B*H, S, D] -> [B, S, H, D]
         return x.detach().float().reshape(B, H, S, D).transpose(1, 2).numpy()
 
-    for ours, ref in zip([o] + [t.grad for t in (tq, tk, tv)],
-                         [o_jax, *grads_jax]):
-        ref = np.asarray(ref.astype(jnp.float32))
-        err = np.abs(back(ours) - ref).max()
-        assert err <= tol * np.abs(ref).max(), err
+    assert kernel_takes(tdt, S, S, D, D ** -0.5) == (D == 32)
+    for fn in (unet_mod.dense_attention, attention):
+        tq, tk, tv = (heads(x) for x in (q, k, v))
+        o = fn(tq, tk, tv, D ** -0.5)
+        assert o.dtype == tdt
+        o.float().backward(heads(g).detach().float())
+        for ours, ref in zip([o] + [t.grad for t in (tq, tk, tv)],
+                             [o_jax, *grads_jax]):
+            ref = np.asarray(ref.astype(jnp.float32))
+            err = np.abs(back(ours) - ref).max()
+            assert err <= tol * np.abs(ref).max(), (fn.__name__, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_big_sends_every_site_to_mha(dtype, monkeypatch):
+    """LGM big's U-Net at fp32 (``mixed_precision="fp32"``) as at bf16:
+    all 16 MVAttention sites (5 at S 4096, D 32; 5 at S 1024 and 6 at S
+    256, D 64) go to ``mha`` (K1 and K1ᵇ on the card), none to the dense
+    route, in the model's dtype. Run on the meta device at the preset's
+    full width and input size (shapes only, no arithmetic)."""
+    opt = get_config("big")
+    calls = []
+    monkeypatch.setattr(unet_mod, "mha", lambda q, k, v, scale: calls.append(
+        (q.dtype, q.shape[1], q.shape[2], scale)) or q)
+    monkeypatch.setattr(unet_mod, "dense_attention",
+                        lambda q, *a: calls.append("dense") or q)
+    with torch.device("meta"):
+        model = LGM(opt, dtype=dtype)
+        x = torch.zeros(opt.num_input_views, 9, opt.input_size,
+                        opt.input_size)
+        model.unet(x, opt.num_input_views)
+    sites = [m for m in model.modules()
+             if isinstance(m, unet_mod.MVAttention)]
+    assert len(sites) == len(calls) == 16
+    assert sorted(c[1:3] for c in calls) == sorted(
+        [(4096, 32)] * 5 + [(1024, 64)] * 5 + [(256, 64)] * 6)
+    for dt, S, D, scale in calls:
+        assert dt is dtype and kernel_takes(dtype, S, S, D, scale)

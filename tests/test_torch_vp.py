@@ -9,7 +9,9 @@ channels in 2 heads (BH 2, S 512, D 32):
 - bf16, a shape the kernels take at Sq = S/vp, Sk = S (``kernel_takes``),
   so the site goes through ``mha_views`` (K1 and K1ᵇ on the card; here
   their plain versions, f32 dK/dV partials summed over the group);
-- fp32, on the dense route, k and v joined by ``dist.gather_views``.
+- fp32, a shape the f32 kernels take, so the site goes through
+  ``mha_views`` too (here the plain versions at f32: exact softmax
+  attention, f32 dK/dV partials summed over the group).
 
 Tolerances. fp32: the ranks compute the same f32 products, the parameter
 gradients summed over ranks in another order: 1e-5 of each tensor's
@@ -143,13 +145,12 @@ def test_view_sharded_attention_matches_one_process(data, n):
     tmp, path, d = data
     ranks = _world(tmp, path, n)
     S = V * H * W
-    assert kernel_takes(torch.bfloat16, S // n, S, C // HEADS,
-                        (C // HEADS) ** -0.5)
+    for dt in SITES.values():
+        assert kernel_takes(dt, S // n, S, C // HEADS, (C // HEADS) ** -0.5)
     for site, dt in SITES.items():
         y, dx, dparams = _one_process(d, dt)
         bf16 = dt is torch.bfloat16
-        assert [str(r[site + "/route"]) for r in ranks] == \
-            [("mha_views" if bf16 else "dense")] * n
+        assert [str(r[site + "/route"]) for r in ranks] == ["mha_views"] * n
         rel = 2.0 ** -7 if bf16 else 1e-5
         views = B * V // n  # B = 1: rank r holds rows r*V/n ..
         for r, res in enumerate(ranks):
