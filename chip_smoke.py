@@ -28,13 +28,16 @@ checked against the counts each path must give):
   K3ᵇ held against their plain versions on that step's own inputs, and
   the backend's image held against the oracle and flatsort;
 - fp32 (``mixed_precision="fp32"``, the whole net in f32): K1 and K1ᵇ on
-  f32 inputs (3xTF32 kernels) at LGM big's site shapes (BH 16, 32 and
-  128) and a vp rank's lengths against their plain versions, bit-equal
-  repeats and vp rows, beside SDPA at f32 (``k1_f32``); then LGM big's
+  f32 inputs (3xTF32 on wgmma fed by TMA, after the split pass that
+  writes each operand's TF32 halves, itself held bit for bit against its
+  plain version) at LGM big's site shapes (BH 16, 32 and 128) and a vp
+  rank's lengths against their plain versions, bit-equal repeats and vp
+  rows, beside SDPA at f32 (``k1_f32``); then LGM big's
   ``infer.process`` (f32 K1 16 a forward), bs2 train steps on the kernel
-  route (f32 K1 and K1ᵇ 16 each a step) and, from the same weights and
-  batches, on the dense route forced in this process (peak memory and
-  step time both ways, the two first losses held to each other), and one
+  route (f32 K1 and K1ᵇ 16 each a step, the split pass 32) and, from the
+  same weights and batches, on the dense route forced in this process
+  (peak memory and step time both ways, the two first losses held to each
+  other), one warm forward and one kernel-route step profiled, and one
   step at the preset's batch of 8 with its U-Net recompute (``fp32``);
 - the attention gate: the ``nano`` preset (head dim 6) trained one step
   in fp32 and in bf16, every site on the dense route, losses finite;
@@ -407,6 +410,22 @@ def k1b_f32_bound(BH: int, Sq: int, Sk: int, D: int):
         4 * BH * Sq * D * 4 + 4 * BH * Sk * D * 4 + BH * Sq * 4)
 
 
+# The split pass's operands in K1 (q, k row-major; v transposed) and in
+# K1ᵇ (q, k, dO both ways; v row-major): (name, row-major, transposed).
+SPLIT_FWD = (("q", True, False), ("k", True, False), ("v", False, True))
+SPLIT_BWD = (("q", True, True), ("k", True, True), ("v", True, False),
+             ("do", True, True))
+
+
+def split_bound(BH: int, Sq: int, Sk: int, D: int, operands):
+    """The split pass's bound: bytes, each operand read once and its two
+    or four TF32 planes written once, 4 bytes an element (q and dO of Sq
+    rows, k and v of Sk)."""
+    elems = sum(BH * (Sq if name in ("q", "do") else Sk) * D
+                * (1 + 2 * rows + 2 * cols) for name, rows, cols in operands)
+    return bound({}, 4.0 * elems)
+
+
 def rel_err(ours, ref) -> float:
     """Max abs error over the reference's largest |value|."""
     return float((ours.float() - ref.float()).abs().max()) / max(
@@ -686,15 +705,28 @@ def phase_build():
     sass = {name: _build.sass_counts(libs[name])
             for name in ("composite_fwd", "composite_bwd", "tiled_fwd",
                          "tiled_bwd")}
-    # The wgmma kernels' registers and spills (none allowed).
-    wgmma = {kernel: report for name in ("mha_fwd_wgmma", "mha_bwd_wgmma")
-             for kernel, report in ptxas[name].items()}
+    # The wgmma kernels' registers and spills (none allowed), bf16 and f32
+    # (with the f32 split pass).
+    wgmma = {kernel: report for name in (
+        "mha_fwd_wgmma", "mha_bwd_wgmma", "mha_fwd_f32", "mha_bwd_f32",
+        "mha_split_tf32") for kernel, report in ptxas[name].items()}
     spilled = {k: r for k, r in wgmma.items()
                if r["spill_stores"] or r["spill_loads"] or r["stack_frame"]}
     if spilled:
         raise AssertionError(f"wgmma kernels spill: {spilled}")
+    # The f32 kernels' tensor-core instructions: TF32 wgmma (HGMMA ..
+    # .TF32) in every kernel, no Ampere mma.sync m16n8k8 (HMMA.1688) left;
+    # None without cuobjdump.
+    f32_sass = {name: _build.sass_mma_counts(libs[name])
+                for name in ("mha_fwd_f32", "mha_bwd_f32")}
+    bad = {name: counts for name, counts in f32_sass.items()
+           if counts is not None and not all(
+               c["HGMMA_TF32"] > 0 and c["HMMA_1688"] == 0
+               for c in counts.values())}
+    if bad:
+        raise AssertionError(f"f32 kernels off TF32 wgmma: {bad}")
     emit("build", seconds=seconds, kernels=sorted(libs), ptxas=ptxas,
-         sass=sass, wgmma_ptxas=wgmma)
+         sass=sass, wgmma_ptxas=wgmma, f32_sass=f32_sass)
     return ptxas
 
 
@@ -1037,7 +1069,7 @@ def phase_k1_bwd(dev):
     return dict(max_abs_err=worst_err, bound_by=bound_by, **total)
 
 
-def phase_k1_f32(dev, ptxas):
+def phase_k1_f32(dev, ptxas=None):
     """K1 and K1ᵇ on f32 inputs (``mha_fwd_f32``, ``mha_bwd_f32``, reached
     through ``mha_fwd`` / ``mha_bwd`` as the fp32 path reaches them) at
     ``K1_F32_SHAPES``, on seeded inputs: each against its plain version at
@@ -1048,23 +1080,37 @@ def phase_k1_f32(dev, ptxas):
     the vp lengths at the B = 1 and bs2 shapes: each rank's S/vp queries
     (vp 2 and 4) against S keys, its o, lse and dq rows bit for bit the
     full call's, its f32 dK/dV partials summed over the ranks within
-    K1_F32_REL_TOL of the full call's, rank 0 timed. Returns the
-    ``kernels`` line's fields: the f32 K1 summed over a B = 1 forward's
-    sites, K1ᵇ over a bs2 step's."""
+    K1_F32_REL_TOL of the full call's, rank 0 timed. The split pass that
+    each f32 K1 and K1ᵇ launch runs first (``mha_split_tf32``: 4 launches
+    in a shape's check) is held bit for bit against its plain version on
+    K1ᵇ's operands and timed alone on each kernel's operands (inside their
+    ``kernel_ms``), beside its bytes bound. Returns the ``kernels`` line's
+    fields: the f32 K1 summed over a B = 1 forward's sites, K1ᵇ over a bs2
+    step's, and the split pass over a bs2 step's 32 launches. ``ptxas``
+    (phase ``build``'s reports) is printed where given."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from lgm_tpu_torch.ops.mha import (_sms, launch_plan, mha_bwd,
+    from lgm_tpu_torch.ops.mha import (_sms, _split, launch_plan, mha_bwd,
                                        mha_bwd_f32, mha_bwd_reference,
-                                       mha_fwd, mha_fwd_f32, mha_reference)
+                                       mha_fwd, mha_fwd_f32, mha_reference,
+                                       mha_split_tf32, split_tf32_reference)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    emit("k1_f32_ptxas", mha_fwd_f32=ptxas["mha_fwd_f32"],
-         mha_bwd_f32=ptxas["mha_bwd_f32"])
+    if ptxas is not None:
+        emit("k1_f32_ptxas", **{name: ptxas[name] for name in (
+            "mha_fwd_f32", "mha_bwd_f32", "mha_split_tf32")})
     sums = {per: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                       max_abs_err=0.0, bound_by="operations")
             for per in ("forward", "step")}
+    # The split pass inside a bs2 fp32 step: its launch in each K1 (the
+    # forward's operands) and each K1ᵇ (the backward's).
+    split = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
+                 max_abs_err=0.0, bound_by="bytes")
+
+    def split_of(tensors, operands):
+        return [(tensors[name], rows, cols) for name, rows, cols in operands]
     shapes = []
     for (BH, S, D), sites in K1_F32_SHAPES:
         rng = np.random.default_rng(BH + S + D)
@@ -1072,16 +1118,16 @@ def phase_k1_f32(dev, ptxas):
                                        dtype=torch.float32, device=dev)
                        for _ in range(4))
         scale = float(D) ** -0.5
-        counts = [fn.launches for fn in (mha_fwd_f32, mha_bwd_f32, mha_fwd,
-                                         mha_bwd)]
+        wrappers = (mha_fwd_f32, mha_bwd_f32, mha_fwd, mha_bwd,
+                    mha_split_tf32)
+        counts = [fn.launches for fn in wrappers]
         with torch.no_grad():
             o, lse = mha_fwd(q, k, v, scale, return_lse=True)
             again = mha_fwd(q, k, v, scale, return_lse=True)
             grads = mha_bwd(q, k, v, o, do, scale, lse)
             twice = mha_bwd(q, k, v, o, do, scale, lse)
             torch.cuda.synchronize()
-            launched = [fn.launches - n for fn, n in zip(
-                (mha_fwd_f32, mha_bwd_f32, mha_fwd, mha_bwd), counts)]
+            launched = [fn.launches - n for fn, n in zip(wrappers, counts)]
             bitwise = (torch.equal(again[0], o) and torch.equal(again[1], lse)
                        and all(torch.equal(a, b) for a, b in zip(grads,
                                                                   twice)))
@@ -1099,14 +1145,14 @@ def phase_k1_f32(dev, ptxas):
                         for a, b in zip(grads, plain))
             del plain
             torch.cuda.empty_cache()
-            if not (launched == [2, 2, 0, 0] and bitwise
+            if not (launched == [2, 2, 0, 0, 4] and bitwise
                     and err <= K1_F32_REL_TOL and lse_err <= lse_tol
                     and max(b_errs.values()) <= K1_F32_REL_TOL
                     and o.dtype == lse.dtype == grads[0].dtype
                     == torch.float32):
                 raise AssertionError(
                     f"f32 K1/K1ᵇ {BH}x{S}x{D}: launches (f32 fwd, f32 bwd, "
-                    f"bf16 fwd, bf16 bwd) {launched}, bit-equal repeat "
+                    f"bf16 fwd, bf16 bwd, split) {launched}, bit-equal repeat "
                     f"{bitwise}, o {err} (tol {K1_F32_REL_TOL}), lse "
                     f"{lse_err} (tol {lse_tol}), grads {b_errs}")
             # In inference (B = 1) the forward writes no statistic; in
@@ -1122,6 +1168,36 @@ def phase_k1_f32(dev, ptxas):
             sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], scale=scale),
                 launches=K1_LAUNCHES)
+            # The split pass alone, bit for bit its plain version on the
+            # backward's operands (every kind of plane), and timed on the
+            # operands of each kernel (inside the kernel_ms above).
+            named = dict(q=q, k=k, v=v, do=do)
+            planes = mha_split_tf32(split_of(named, SPLIT_BWD))
+            split_bitwise = all(
+                torch.equal(got[key].view(torch.int32),
+                            want[key].view(torch.int32))
+                for (x, rows, cols), got in zip(
+                    split_of(named, SPLIT_BWD), planes)
+                for want in (split_tf32_reference(x, rows, cols),)
+                for key in want)
+            del planes
+            if not split_bitwise:
+                raise AssertionError(f"split pass {BH}x{S}x{D}: not bit "
+                                     f"for bit its plain version")
+            # Timed as the kernels' wrappers launch it (``_split``: no
+            # views, no second check of the operands).
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            split_ms = {per: cuda_ms(lambda ops=ops: _split(
+                split_of(named, ops), BH, D, dev, stream),
+                launches=K1_LAUNCHES)
+                for per, ops in (("fwd", SPLIT_FWD), ("bwd", SPLIT_BWD))}
+            split_plain_ms = {per: cuda_ms(lambda ops=ops: [
+                split_tf32_reference(x, r, c)
+                for x, r, c in split_of(named, ops)], reps=3)
+                for per, ops in (("fwd", SPLIT_FWD), ("bwd", SPLIT_BWD))}
+            split_bounds = {per: split_bound(BH, S, S, D, ops)[0]
+                            for per, ops in (("fwd", SPLIT_FWD),
+                                             ("bwd", SPLIT_BWD))}
         qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
         out = F.scaled_dot_product_attention(qs[None], ks[None], vs[None],
                                              scale=scale)
@@ -1129,6 +1205,10 @@ def phase_k1_f32(dev, ptxas):
             out, (qs, ks, vs), do[None], retain_graph=True),
             launches=K1_LAUNCHES)
         del out, qs, ks, vs
+        if BH == 32:
+            for key, vals in (("ms", split_ms), ("plain_ms", split_plain_ms),
+                              ("bound_ms", split_bounds)):
+                split[key] += sites * (vals["fwd"] + vals["bwd"])
         f_bound, f_by = k1_f32_bound(BH, S, S, D)
         bw_bound, bw_by = k1b_f32_bound(BH, S, S, D)
         plan = launch_plan(BH, S, S, D, _sms(dev), torch.float32)
@@ -1137,17 +1217,25 @@ def phase_k1_f32(dev, ptxas):
              lse_max_abs_err=lse_err, lse_tol=lse_tol, bitwise_repeat=True,
              kernel_ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
              kernel_over_library=ms / sdpa_ms, bound_us=f_bound * 1e3,
-             bound_by=f_by, share_of_bound=f_bound / ms)
+             bound_by=f_by, share_of_bound=f_bound / ms,
+             split_launches=1, split_ms=split_ms["fwd"],
+             split_plain_ms=split_plain_ms["fwd"],
+             split_bound_us=split_bounds["fwd"] * 1e3,
+             split_bitwise=split_bitwise)
         emit("k1_bwd_f32", shape=[BH, S, D], sites=sites, plan=plan,
              max_abs_err=b_abs, max_rel_err=b_errs, tol_rel=K1_F32_REL_TOL,
              bitwise_repeat=True, kernel_ms=b_ms, plain_ms=b_plain_ms,
              library_ms=sdpa_bwd_ms, kernel_over_library=b_ms / sdpa_bwd_ms,
              bound_us=bw_bound * 1e3, bound_by=bw_by,
-             share_of_bound=bw_bound / b_ms)
+             share_of_bound=bw_bound / b_ms, split_launches=1,
+             split_ms=split_ms["bwd"], split_plain_ms=split_plain_ms["bwd"],
+             split_bound_us=split_bounds["bwd"] * 1e3)
         shapes.append(dict(shape=[BH, S, D], sites=sites, k1_ms=ms,
                            k1b_ms=b_ms, sdpa_ms=sdpa_ms,
                            sdpa_bwd_ms=sdpa_bwd_ms, k1_bound_ms=f_bound,
-                           k1b_bound_ms=bw_bound))
+                           k1b_bound_ms=bw_bound,
+                           split_fwd_ms=split_ms["fwd"],
+                           split_bwd_ms=split_ms["bwd"]))
         for per, BH_per, vals in (
                 ("forward", 16, (ms, plain_ms, sdpa_ms, f_bound, abs_err,
                                  f_by)),
@@ -1243,10 +1331,11 @@ def phase_k1_f32(dev, ptxas):
                            dkv_sum_max_rel_err=dkv_err))
         del q, k, v, do, o, lse, dq, dk, dv, dk_sum, dv_sum
         torch.cuda.empty_cache()
-    emit("k1_f32_sums", **{f"{per}_{key}": val for per, d in sums.items()
+    emit("k1_f32_sums", **{f"{per}_{key}": val for per, d in
+                           (*sums.items(), ("split_step", split))
                            for key, val in d.items()})
     return (dict(sums["forward"], shapes=shapes, vp_shapes=vp_fwd),
-            dict(sums["step"], vp_shapes=vp_bwd))
+            dict(sums["step"], vp_shapes=vp_bwd), split)
 
 
 def phase_k2_bwd(dev):
@@ -2018,7 +2107,11 @@ def phase_fp32(dev, mv):
     first losses held to each other (FP32_ROUTE_LOSS_RTOL); then one step
     at the preset's own batch of 8 with its ``unet_remat`` on the kernel
     route (f32 K1 32, K1ᵇ 16), its peak memory, and the dense route's bs 8
-    peak reckoned from the bs2 measurements (not run)."""
+    peak reckoned from the bs2 measurements (not run). Every f32 K1 and
+    K1ᵇ launch runs the split pass first (``mha_split_tf32``: 16 a
+    forward, 32 a bs2 step, 48 a bs 8 step). One warm fp32 forward and
+    one bs2 step on the kernel route are profiled (``fp32_forward``,
+    ``fp32_train_step``)."""
     import contextlib
     from unittest import mock
 
@@ -2032,7 +2125,8 @@ def phase_fp32(dev, mv):
     from lgm_tpu_torch.ops.gsplat import flatsort as fs
 
     counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, mha_mod.mha_fwd_f32,
-                mha_mod.mha_bwd_f32, fs.composite_fwd, fs.composite_bwd)
+                mha_mod.mha_bwd_f32, mha_mod.mha_split_tf32,
+                fs.composite_fwd, fs.composite_bwd)
 
     def reset():
         for fn in counters:
@@ -2057,7 +2151,8 @@ def phase_fp32(dev, mv):
     launches = read()
     infer_peak = gb()
     expected = dict.fromkeys(launches, 0)
-    expected.update(mha_fwd_f32=sites, composite_fwd=180)
+    expected.update(mha_fwd_f32=sites, mha_split_tf32=sites,
+                    composite_fwd=180)
     gs = res["gaussians"]
     n = 4 * opt.splat_size ** 2
     if (launches != expected or routes != {"kernel": sites, "dense": 0}
@@ -2079,14 +2174,17 @@ def phase_fp32(dev, mv):
          orbit_s=res["orbit_s"], launches=launches, attention_routes=routes,
          gaussians_vs_plain_attention_max=float(np.abs(gs - gs_plain).max()),
          peak_mem_gb=infer_peak)
+    profile_window("fp32_forward",
+                   lambda: infer.forward_gaussians(model, mv))
     del model, res, gs, gs_plain
     torch.cuda.empty_cache()
 
-    def run(opt, steps, dense=False):
+    def run(opt, steps, dense=False, profile=None):
         """``steps`` train steps from the seeded weights, on the kernel
         route or (``dense``) with the gate forced dense; returns the
         steps' seconds, losses, gradient norms, launches, routes and peak
-        memory."""
+        memory. With ``profile``, one more step is then profiled under
+        that window name (after the counts and the peak are read)."""
         state = train.create_state(opt, dev)
         train_ds, _ = train.make_datasets(opt, dev)
         gen = torch.Generator().manual_seed(42)
@@ -2111,7 +2209,8 @@ def phase_fp32(dev, mv):
         expected.update(composite_fwd=(2 * views + inputs) * steps,
                         composite_bwd=views * steps)
         if not dense:
-            expected.update(mha_fwd_f32=calls, mha_bwd_f32=sites * steps)
+            expected.update(mha_fwd_f32=calls, mha_bwd_f32=sites * steps,
+                            mha_split_tf32=calls + sites * steps)
         want_routes = {"kernel": 0 if dense else calls,
                        "dense": calls if dense else 0}
         if out["launches"] != expected or routes != want_routes:
@@ -2120,13 +2219,18 @@ def phase_fp32(dev, mv):
                 f"fp32 train bs{opt.batch_size} ({route} route): launches "
                 f"{out['launches']}, expected {expected}; routes {routes}, "
                 f"expected {want_routes}")
+        if profile:
+            data = train._batch_data(train_ds.batch(steps))
+            bg = torch.rand(3, generator=gen).to(dev)
+            profile_window(profile,
+                           lambda: train.train_step(state, data, bg))
         del state, train_ds
         torch.cuda.empty_cache()
         return out
 
     bs2 = CONFIGS["big"].replace(batch_size=2, unet_remat=False,
                                  mixed_precision="fp32")
-    kernel = run(bs2, N_FP32_STEPS)
+    kernel = run(bs2, N_FP32_STEPS, profile="fp32_train_step")
     dense = run(bs2, N_FP32_STEPS, dense=True)
     loss_diff = abs(kernel["loss"][0] - dense["loss"][0])
     if not loss_diff <= FP32_ROUTE_LOSS_RTOL * abs(dense["loss"][0]):
@@ -4020,7 +4124,7 @@ def main() -> int:
     k2 = phase_k2(dev, ptxas)
     k1b = phase_k1_bwd(dev)
     vp_fwd, vp_bwd = phase_vp_kernels(dev)
-    k1f, k1bf = phase_k1_f32(dev, ptxas)
+    k1f, k1bf, k1f_split = phase_k1_f32(dev, ptxas)
     k2b = phase_k2_bwd(dev)
     k3, k3_args, k3_out, k3_work = phase_k3(dev, ptxas)
     k3b = phase_k3_bwd(dev, k3_args, k3_out, k3_work)
@@ -4132,6 +4236,18 @@ def main() -> int:
              launches=fp32_launches["train"]["mha_bwd_f32"],
              train_bs8_launches=fp32_launches["train_bs8"]["mha_bwd_f32"],
              vp_shapes=k1bf["vp_shapes"], **{k: k1bf[k] for k in keys}),
+        # The f32 kernels' operand split (no TPU kernel of its own: it
+        # serves K1 and K1ᵇ on f32 inputs, whose TPU kernels it names),
+        # launched once before each: its numbers are those of a bs2 fp32
+        # step's 32 launches (16 in K1, 16 in K1ᵇ), inside their ms.
+        dict(name="mha_split_tf32", route="cuda",
+             source="lgm_tpu_torch/ops/csrc/mha_split_tf32.cu",
+             replaces="lgm_tpu/ops/mha.py:42 and :61 (operand split of the "
+                      "f32 K1 and K1ᵇ; no TPU kernel of its own)",
+             launches=fp32_launches["train"]["mha_split_tf32"],
+             infer_launches=fp32_launches["infer"]["mha_split_tf32"],
+             train_bs8_launches=fp32_launches["train_bs8"]["mha_split_tf32"],
+             **{k: k1f_split[k] for k in keys}),
     ]
     # The pallas_v1 training path's own counts of the kernels it shares
     # with the other two paths.

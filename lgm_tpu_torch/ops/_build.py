@@ -151,13 +151,10 @@ def short_name(mangled: str) -> str:
     return (base[-1] if base else mangled) + (f"<{args}>" if args else "")
 
 
-def sass_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
-    """Static counts of warp shuffles (``SHFL``) and shared-memory loads
-    (``LDS*``, ``LDSM``) in each kernel of a built library, read from
-    ``cuobjdump -sass``, in the whole kernel and in its longest loop (the
-    instructions between a backward branch and its target: ``loop``,
-    ``loop_SHFL``, ``loop_LDS``); None where the toolkit has no
-    ``cuobjdump``."""
+def _sass(lib: Path) -> Optional[Dict[str, list]]:
+    """Each kernel's SASS instructions in a built library, as (address,
+    opcode with its modifiers, operands), from ``cuobjdump -sass``; None
+    where the toolkit has no ``cuobjdump``."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -172,23 +169,41 @@ def sass_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
         if fn:
             ops = kernels.setdefault(short_name(fn.group(1)), [])
             continue
+        # The opcode and its modifiers (``HGMMA.64x32x8.F32.TF32``).
         op = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                       r"([A-Z0-9_.]+)([^;]*)", line)
+                       r"([A-Z][A-Za-z0-9_.]*)([^;]*)", line)
         if ops is not None and op:
-            ops.append((int(op.group(1), 16), op.group(2).split(".")[0],
-                        op.group(3)))
+            ops.append((int(op.group(1), 16), op.group(2), op.group(3)))
+    return kernels
+
+
+def sass_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
+    """Static counts of warp shuffles (``SHFL``) and shared-memory loads
+    (``LDS*``, ``LDSM``) in each kernel of a built library, read from
+    ``cuobjdump -sass``, in the whole kernel and in its longest loop (the
+    instructions between a backward branch and its target: ``loop``,
+    ``loop_SHFL``, ``loop_LDS``); None where the toolkit has no
+    ``cuobjdump``."""
+    import re
+
+    kernels = _sass(lib)
+    if kernels is None:
+        return None
 
     def count(instrs):
-        return {"SHFL": sum(name == "SHFL" for _, name, _ in instrs),
-                "LDS": sum(name in ("LDS", "LDSM") for _, name, _ in instrs)}
+        return {"SHFL": sum(op.split(".")[0] == "SHFL"
+                            for _, op, _ in instrs),
+                "LDS": sum(op.split(".")[0] in ("LDS", "LDSM")
+                           for _, op, _ in instrs)}
 
     out: Dict[str, Dict[str, int]] = {}
     for kernel, instrs in kernels.items():
         out[kernel] = count(instrs)
         loops = []
-        for addr, name, rest in instrs:
+        for addr, op, rest in instrs:
             target = re.search(r"0x([0-9a-f]+)", rest)
-            if name == "BRA" and target and int(target.group(1), 16) < addr:
+            if op.split(".")[0] == "BRA" and target \
+                    and int(target.group(1), 16) < addr:
                 lo = int(target.group(1), 16)
                 loops.append([i for i in instrs if lo <= i[0] <= addr])
         if loops:
@@ -197,6 +212,22 @@ def sass_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
             out[kernel].update(loop=len(body), loop_SHFL=inner["SHFL"],
                                loop_LDS=inner["LDS"])
     return out
+
+
+def sass_mma_counts(lib: Path) -> Optional[Dict[str, Dict[str, int]]]:
+    """Static counts of each kernel's tensor-core instructions in a built
+    library: warpgroup products (``HGMMA``), those on TF32 operands
+    (``HGMMA_TF32``), and Ampere's m16n8k8 ``mma.sync`` (``HMMA_1688``);
+    None where the toolkit has no ``cuobjdump``."""
+    kernels = _sass(lib)
+    if kernels is None:
+        return None
+    return {kernel: {
+        "HGMMA": sum(op.startswith("HGMMA") for _, op, _ in instrs),
+        "HGMMA_TF32": sum(op.startswith("HGMMA") and ".TF32" in op
+                          for _, op, _ in instrs),
+        "HMMA_1688": sum(op.startswith("HMMA.1688") for _, op, _ in instrs)}
+        for kernel, instrs in kernels.items()}
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -12,12 +12,13 @@ tensor it launches a hand-written kernel (bf16 or f32, D in {32, 64}, Sk
 a multiple of 128, Sq of 64, scale > 0) or raises: at bf16
 ``csrc/mha_fwd_wgmma.cu`` (wgmma fed by TMA, one design at both head
 dims), at f32 ``csrc/mha_fwd_f32.cu`` through ``mha_fwd_f32`` (3xTF32 on
-mma.sync); on a CPU tensor it runs ``mha_reference``, the same function
-in plain PyTorch. Sq differs from
-Sk under the view-sharded U-Net, where a vp rank holds the queries of its
-own views and the keys of all of them (``mha_views``); each row is then
-bit for bit the row of the Sq = Sk call, since a row's arithmetic reads
-only its own q row and every key, and the route reads only D.
+wgmma fed by TMA, after the split pass ``mha_split_tf32``); on a CPU
+tensor it runs ``mha_reference``, the same function in plain PyTorch.
+Sq differs from Sk under the view-sharded U-Net, where a vp rank holds
+the queries of its own views and the keys of all of them
+(``mha_views``); each row is then bit for bit the row of the Sq = Sk
+call, since a row's arithmetic reads only its own q row and every key,
+and the route reads only D.
 
 ``mha_bwd`` is the port of the backward (``_bwd_kernel`` via
 ``_mha_bwd``): from q, k, v, o, the forward's L and the cotangent dO it
@@ -37,7 +38,14 @@ input dtype (``lgm_tpu/ops/mha.py:54,91,97,108``); the port does not at
 f32, a deliberate difference (README). The f32 kernels take their
 products by 3xTF32 (each f32 operand split into two TF32 halves, three
 tensor-core products), about 2^-22 of the scale from f32 products; one
-TF32 pass alone (2^-11) would not be f32 grade.
+TF32 pass alone (2^-11) would not be f32 grade. The split pass
+(``mha_split_tf32``, ``csrc/mha_split_tf32.cu``, plain version
+``split_tf32_reference``) writes each operand's halves once a call, as
+the planes the kernels' TMA loads read: row-major for the products over
+D and, since TF32 wgmma reads its operands K-major only, transposed with
+the rows of each 8-row group permuted (``TF32_PERM``) for the products
+over the rows, whose A operand is P or dS straight from the
+accumulators.
 ``mha`` joins the two in an autograd Function, and ``mha_views`` does so
 for a vp rank, gathering K and V over the group and summing their
 gradients back. Each kernel's design note and bound are in its source.
@@ -84,15 +92,24 @@ _WGMMA_BWD_SIGNATURES = {
 }
 _F32_SIGNATURES = {
     "mha_fwd_f32": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_int] + [ctypes.c_void_p, ctypes.c_int],
+        [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
 _F32_BWD_SIGNATURES = {
     "mha_bwd_f32": (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
+        [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p, ctypes.c_int],
+        ctypes.c_int,
+    ),
+}
+_SPLIT_SIGNATURES = {
+    "mha_split_tf32": (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
 }
@@ -104,8 +121,12 @@ _Q_TILE = 64
 # ``csrc/mha_fwd_wgmma.cu`` / ``mha_bwd_wgmma.cu``, D = 32 and 64).
 ROUTES = ("wgmma",)
 # The one design of the f32 kernels (``csrc/mha_fwd_f32.cu`` /
-# ``mha_bwd_f32.cu``): 3xTF32 on mma.sync m16n8k8, at D = 32 and 64.
-F32_ROUTE = "tf32x3"
+# ``mha_bwd_f32.cu``): 3xTF32 on wgmma m64nNk8 fed by TMA from the split
+# pass's planes (``mha_split_tf32``), at D = 32 and 64.
+F32_ROUTE = "tf32x3_wgmma"
+# Row p of each 8-row group of a transposed plane holds row TF32_PERM[p]
+# (``split_tf32_reference``; ``csrc/mha_f32.cuh``).
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def route(D: int) -> str:
@@ -137,14 +158,19 @@ def warpgroups(BH: int, rows: int, sms: int, D: int) -> int:
     return 2 if rows % 128 == 0 and rows // 64 * BH > sms else 1
 
 
-def f32_warps(BH: int, rows: int, sms: int) -> int:
-    """Warps (16 rows each) a block of the f32 kernels over ``rows``
-    (queries in K1 and the dq kernel, keys in the dK/dV kernel): 8 where
-    128-row blocks divide the rows and fill every one of the ``sms``
-    multiprocessors at least once (each block reads every key or query
-    tile once, so fewer, larger blocks read less), else 4. A row's
-    arithmetic does not depend on the block."""
-    return 8 if rows % 128 == 0 and rows // 128 * BH >= sms else 4
+def f32_warpgroups(BH: int, Sq: int, Sk: int, D: int, sms: int) -> dict:
+    """Consumer warpgroups (64 rows each) a block of the f32 kernels: K1
+    ``fwd`` as the bf16 K1 (``warpgroups``: 1, 2, or 4 at D = 32); K1ᵇ's
+    ``dq`` and ``dkv`` kernels at most 2 at D = 32 and 1 at D = 64, where
+    a dK/dV consumer holds four accumulators and two products' A operands
+    (its registers would not fit a smaller share) and two dq consumers
+    would spill and ran no faster (PERF.md). A row's arithmetic
+    does not depend on the block."""
+    fwd = warpgroups(BH, Sq, sms, D)
+    if D == 64:
+        return dict(fwd=fwd, dq=1, dkv=1)
+    return dict(fwd=fwd, dq=min(2, fwd),
+                dkv=min(2, warpgroups(BH, Sk, sms, D)))
 
 
 def launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int,
@@ -152,11 +178,10 @@ def launch_plan(BH: int, Sq: int, Sk: int, D: int, sms: int,
     """How K1 and K1ᵇ launch at this shape and dtype on ``sms``
     multiprocessors: the design (``route`` at bf16, ``F32_ROUTE`` at f32)
     and a block of each kernel (K1 ``fwd`` and K1ᵇ's ``dq`` over the
-    queries, ``dkv`` over the keys): consumer warpgroups of 64 rows at
-    bf16 (``warpgroups``), warps of 16 rows at f32 (``f32_warps``)."""
+    queries, ``dkv`` over the keys): consumer warpgroups of 64 rows
+    (``warpgroups`` at bf16, ``f32_warpgroups`` at f32)."""
     if dtype is torch.float32:
-        return dict(route=F32_ROUTE, fwd=f32_warps(BH, Sq, sms),
-                    dq=f32_warps(BH, Sq, sms), dkv=f32_warps(BH, Sk, sms))
+        return dict(route=F32_ROUTE, **f32_warpgroups(BH, Sq, Sk, D, sms))
     return dict(route=route(D), fwd=warpgroups(BH, Sq, sms, D),
                 dq=warpgroups(BH, Sq, sms, D), dkv=warpgroups(BH, Sk, sms, D))
 
@@ -204,6 +229,113 @@ def mha_bwd_reference(q, k, v, o, do, scale: float, lse,
     if dkv_f32:
         return dq.to(dt), dk, dv
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) rounded to TF32 as the f32 kernels round it: the magnitude
+    to nearest at bit 13 of the f32 pattern, ties away from zero, the low
+    13 bits cleared (``csrc/mha_f32.cuh::rna``, the same integer
+    arithmetic)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _perm_rows(R: int, device) -> torch.Tensor:
+    """The row each row of a transposed plane holds: 8-row groups in the
+    order ``TF32_PERM``."""
+    r = torch.arange(R, device=device)
+    return r - r % 8 + torch.tensor(TF32_PERM, device=device)[r % 8]
+
+
+def split_tf32_reference(x: torch.Tensor, rows: bool = True,
+                         cols: bool = False) -> dict:
+    """Plain version of the split pass: x [BH, R, D] f32 into its TF32
+    halves hi = rna(x), lo = rna(x - hi) (x = hi + lo to ~2^-22 of |x|):
+    ``hi``, ``lo`` [BH, R, D] where ``rows``, and the transposed planes
+    ``hi_t``, ``lo_t`` [BH, D, R] where ``cols``, each 8-row group in the
+    order ``TF32_PERM`` (row p of a group holds row TF32_PERM[p])."""
+    hi = tf32_rna(x)
+    lo = tf32_rna(x - hi)
+    out = {}
+    if rows:
+        out.update(hi=hi, lo=lo)
+    if cols:
+        idx = _perm_rows(x.shape[1], x.device)
+        out.update(hi_t=hi[:, idx].transpose(1, 2).contiguous(),
+                   lo_t=lo[:, idx].transpose(1, 2).contiguous())
+    return out
+
+
+def _split(operands, BH: int, D: int, dev, stream):
+    """Launch the split pass on ``operands`` ((x, rows, cols) triples,
+    checked by the caller) into one new buffer; returns the buffer and,
+    for each operand, the element offsets of its planes hi, lo (rows) and
+    hi_t, lo_t (cols), None for a plane not asked for."""
+    sizes = [x.numel() for x, _, _ in operands]
+    buf = torch.empty(sum(2 * (bool(r) + bool(c)) * n for (_, r, c), n
+                          in zip(operands, sizes)),
+                      dtype=torch.float32, device=dev)
+    base, at, offsets, ptrs = buf.data_ptr(), 0, [], []
+    for (x, rows, cols), n in zip(operands, sizes):
+        offs = []
+        for ask in (rows, rows, cols, cols):
+            offs.append(at if ask else None)
+            at += n if ask else 0
+        offsets.append(offs)
+        ptrs += [x.data_ptr()] + [None if o is None else base + 4 * o
+                                  for o in offs]
+    lib = _build.load("mha_split_tf32", _SPLIT_SIGNATURES)
+    err = lib.mha_split_tf32(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(operands))(*(x.shape[1] for x, _, _ in operands)),
+        len(operands), BH, D, stream, dev.index)
+    _build.check(lib, err, "mha_split_tf32")
+    mha_split_tf32.launches += 1
+    return buf, offsets
+
+
+def mha_split_tf32(operands) -> list:
+    """The split pass of the f32 kernels on CUDA tensors
+    (``csrc/mha_split_tf32.cu``, one launch for up to four operands),
+    ``split_tf32_reference`` on CPU tensors. ``operands``: (x, rows, cols)
+    triples, x [BH, R, D] contiguous f32 (one BH and D for all, R a
+    multiple of 32); returns for each the dict of its planes, as the plain
+    version. Counts its launches, the f32 kernels' own calls of the pass
+    (``_split``) included."""
+    operands = list(operands)
+    if operands[0][0].device.type == "cpu":
+        return [split_tf32_reference(x, rows, cols)
+                for x, rows, cols in operands]
+    x0 = operands[0][0]
+    dev = x0.device
+    if dev.type != "cuda":
+        raise ValueError(f"mha_split_tf32: unsupported device {dev}")
+    BH, _, D = x0.shape
+    if not 1 <= len(operands) <= 4:
+        raise ValueError("mha_split_tf32 takes one to four operands")
+    for x, rows, cols in operands:
+        if (x.dtype is not torch.float32 or x.device != dev
+                or not x.is_contiguous() or x.dim() != 3
+                or x.shape[0] != BH or x.shape[2] != D or D not in (32, 64)
+                or x.shape[1] % 32 or not (rows or cols)):
+            raise ValueError(
+                f"mha_split_tf32: each operand a contiguous f32 [BH, R, D] "
+                f"tensor on {dev}, BH {BH}, D {D} in (32, 64), R a multiple "
+                f"of 32, rows or cols asked; got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+    buf, offsets = _split(operands, BH, D, dev,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    out = []
+    for (x, _, _), offs in zip(operands, offsets):
+        R = x.shape[1]
+        out.append({key: buf[o:o + x.numel()].view(
+            (BH, R, D) if key in ("hi", "lo") else (BH, D, R))
+            for key, o in zip(("hi", "lo", "hi_t", "lo_t"), offs)
+            if o is not None})
+    return out
+
+
+mha_split_tf32.launches = 0
 
 
 def kernel_takes(dtype: torch.dtype, Sq: int, Sk: int, D: int,
@@ -310,9 +442,11 @@ mha_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 def mha_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, return_lse: bool = False):
-    """K1 on f32 CUDA tensors (``csrc/mha_fwd_f32.cu``), ``mha_reference``
-    on CPU tensors: exact f32 softmax attention, o f32 and with
-    ``return_lse`` the f32 row statistic. Counts its own launches."""
+    """K1 on f32 CUDA tensors (the split pass, then
+    ``csrc/mha_fwd_f32.cu``), ``mha_reference`` on CPU tensors: exact f32
+    softmax attention, o f32 and with ``return_lse`` the f32 row
+    statistic. Counts its own launches (the split pass counts its
+    own)."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, scale, return_lse)
     dev = _cuda_call("mha_fwd_f32", q, k, v)
@@ -323,12 +457,18 @@ def mha_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = (torch.empty(BH, Sq, dtype=torch.float32, device=dev)
            if return_lse else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # The operands' TF32 halves: Q and K row-major, V transposed (the
+    # buffer lives until the kernel is enqueued).
+    buf, offs = _split(((q, True, False), (k, True, False),
+                        (v, False, True)), BH, D, dev, stream)
+    base = buf.data_ptr()
+    planes = [base + 4 * o for op in offs for o in op if o is not None]
     lib = _build.load("mha_fwd_f32", _F32_SIGNATURES)
     err = lib.mha_fwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        (ctypes.c_void_p * 6)(*planes), o.data_ptr(),
         None if lse is None else lse.data_ptr(), BH, Sq, Sk, D, float(scale),
-        f32_warps(BH, Sq, _sms(dev)), torch.cuda.current_stream(dev)
-        .cuda_stream, dev.index)
+        f32_warpgroups(BH, Sq, Sk, D, _sms(dev))["fwd"], stream, dev.index)
     _build.check(lib, err, "mha_fwd_f32")
     mha_fwd_f32.launches += 1
     return (o, lse) if return_lse else o
@@ -380,8 +520,9 @@ mha_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def mha_bwd_f32(q, k, v, o, do, scale: float, lse):
-    """K1ᵇ on f32 CUDA tensors (``csrc/mha_bwd_f32.cu``, a dq kernel and a
-    dK/dV kernel, no atomics), ``mha_bwd_reference`` on CPU tensors: the
+    """K1ᵇ on f32 CUDA tensors (the split pass, then
+    ``csrc/mha_bwd_f32.cu``, a dq kernel and a dK/dV kernel, no atomics),
+    ``mha_bwd_reference`` on CPU tensors: the
     exact f32 softmax-attention backward from the forward's ``[BH, Sq]``
     f32 statistic. Returns f32 (dq, dk, dv); a vp rank's dk and dv are its
     f32 partial sums. Counts its own launches."""
@@ -398,14 +539,22 @@ def mha_bwd_f32(q, k, v, o, do, scale: float, lse):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # rowsum(dO∘O), written by the dq kernel and read by the dK/dV kernel.
     drow = torch.empty(BH, Sq, dtype=torch.float32, device=dev)
-    sms = _sms(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # The operands' TF32 halves: Q, dO, K, V row-major; Q, dO, K
+    # transposed (the buffer lives until the kernels are enqueued).
+    buf, offs = _split(((q, True, True), (do, True, True), (k, True, True),
+                        (v, True, False)), BH, D, dev, stream)
+    base = buf.data_ptr()
+    q_, do_, k_, v_ = ([None if o is None else base + 4 * o for o in op]
+                       for op in offs)
+    planes = q_[:2] + do_[:2] + k_[:2] + v_[:2] + q_[2:] + do_[2:] + k_[2:]
+    plan = f32_warpgroups(BH, Sq, Sk, D, _sms(dev))
     lib = _build.load("mha_bwd_f32", _F32_BWD_SIGNATURES)
     err = lib.mha_bwd_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        (ctypes.c_void_p * 14)(*planes), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        drow.data_ptr(), BH, Sq, Sk, D, float(scale), f32_warps(BH, Sq, sms),
-        f32_warps(BH, Sk, sms), torch.cuda.current_stream(dev).cuda_stream,
-        dev.index)
+        drow.data_ptr(), BH, Sq, Sk, D, float(scale), plan["dq"],
+        plan["dkv"], stream, dev.index)
     _build.check(lib, err, "mha_bwd_f32")
     mha_bwd_f32.launches += 1
     return dq, dk, dv

@@ -17,7 +17,8 @@ from lgm_tpu_torch.ops.gsplat import flatsort as fs
 from lgm_tpu_torch.ops.gsplat import tiled as tt
 from lgm_tpu_torch.ops.mha import (mha, mha_bwd, mha_bwd_f32,
                                    mha_bwd_reference, mha_fwd, mha_fwd_f32,
-                                   mha_reference)
+                                   mha_reference, mha_split_tf32,
+                                   split_tf32_reference)
 from lgm_tpu_torch.utils import camera
 
 pytestmark = pytest.mark.gpu
@@ -1262,7 +1263,8 @@ def test_tiny_conversion_on_the_card(cuda, tmp_path):
 
 
 # K1 and K1ᵇ on f32 inputs (csrc/mha_fwd_f32.cu, mha_bwd_f32.cu: 3xTF32 on
-# mma.sync), held to the plain versions at f32, exact softmax attention
+# wgmma fed by TMA from the split pass's planes, csrc/mha_split_tf32.cu),
+# held to the plain versions at f32, exact softmax attention
 # with f32 matmuls (TF32 off). The kernels' products are about 2^-22 of
 # |a b| from f32 products and the sums run in other orders: o, dq, dk and
 # dv within 1e-5 of their largest |value|; the statistic as the bf16
@@ -1362,21 +1364,28 @@ def test_mha_f32_kernels_at_a_vp_ranks_lengths(full_f32, BH, S, D, vp):
                                       (4, 128, 512)])
 def test_mha_f32_kernels_agree_across_block_shapes(full_f32, BH, Sq, Sk, D,
                                                    monkeypatch):
-    """The f32 kernels' blocks of 4 and 8 warps give the same bits: a row's
-    arithmetic does not depend on the block."""
+    """The f32 kernels' blocks of one consumer warpgroup and of the most
+    each kernel takes at these lengths (K1 4 at D 32, else 2; the dq and
+    dK/dV kernels 2 at D 32) give the same bits: a row's arithmetic does
+    not depend on the block."""
     import lgm_tpu_torch.ops.mha as mha_mod
 
     cuda = full_f32
     rng = np.random.default_rng(BH * Sq + Sk + D)
     q, do = (_f32(rng, (BH, Sq, D), cuda) for _ in range(2))
     k, v = (_f32(rng, (BH, Sk, D), cuda) for _ in range(2))
+
+    def widest(rows, most):
+        return next(n for n in (4, 2, 1) if n <= most and rows % (64 * n) == 0)
+
     outs = []
     with torch.no_grad():
-        for nw in (4, 8):
-            monkeypatch.setattr(
-                mha_mod, "f32_warps",
-                lambda BH, rows, sms, nw=nw: nw if rows % (16 * nw) == 0
-                else 4)
+        for plan in (dict(fwd=1, dq=1, dkv=1),
+                     dict(fwd=widest(Sq, 4 if D == 32 else 2),
+                          dq=widest(Sq, 2 if D == 32 else 1),
+                          dkv=widest(Sk, 2 if D == 32 else 1))):
+            monkeypatch.setattr(mha_mod, "f32_warpgroups",
+                                lambda *a, plan=plan: plan)
             o, lse = mha_fwd(q, k, v, 0.125, return_lse=True)
             outs.append((o, lse, *mha_bwd(q, k, v, o, do, 0.125, lse)))
     torch.cuda.synchronize()
@@ -1384,6 +1393,68 @@ def test_mha_f32_kernels_agree_across_block_shapes(full_f32, BH, Sq, Sk, D,
     _close(outs[0][0], ref, K1_F32_REL_TOL)
     for a, b in zip(outs[0], outs[1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("BH,R,D", [(16, 4096, 32), (3, 256, 64),
+                                    (2, 96, 32), (4, 1024, 64)])
+def test_split_kernel_matches_plain_bit_for_bit(cuda, BH, R, D):
+    """The split pass (csrc/mha_split_tf32.cu) against its plain version
+    (split_tf32_reference), bit for bit: row-major and transposed halves,
+    each kind alone, four operands of two lengths in one launch."""
+    rng = np.random.default_rng(BH + R + D)
+    xs = [_f32(rng, (BH, R, D), cuda) * 10.0 for _ in range(3)]
+    xs.append(_f32(rng, (BH, 2 * R, D), cuda))
+    asks = [(True, True), (True, False), (False, True), (True, True)]
+    before = mha_split_tf32.launches
+    got = mha_split_tf32([(x, r, c) for x, (r, c) in zip(xs, asks)])
+    torch.cuda.synchronize()
+    assert mha_split_tf32.launches == before + 1
+    for x, (r, c), planes in zip(xs, asks, got):
+        want = split_tf32_reference(x, r, c)
+        assert planes.keys() == want.keys()
+        for key in want:
+            assert planes[key].shape == want[key].shape
+            assert torch.equal(planes[key].view(torch.int32),
+                               want[key].view(torch.int32)), key
+
+
+def test_f32_kernels_spill_nothing(cuda):
+    """``ptxas -v`` reports no spill bytes and no stack frame in any
+    instantiation of the f32 kernels and their split pass."""
+    from chip_smoke import ptxas_summary
+    from lgm_tpu_torch.ops import _build
+
+    libs = _build.build(["mha_fwd_f32", "mha_bwd_f32", "mha_split_tf32"])
+    seen = 0
+    for name, so in libs.items():
+        report = ptxas_summary(so.with_name(so.name + ".log").read_text())
+        for kernel, r in report.items():
+            seen += 1
+            assert (r["spill_stores"], r["spill_loads"],
+                    r["stack_frame"]) == (0, 0, 0), (kernel, r)
+    # K1 5, the dq and dK/dV kernels 3 each, the split pass 2 (D 32, 64).
+    assert seen == 5 + 3 + 3 + 2
+
+
+def test_f32_libraries_run_tf32_hgmma(cuda):
+    """Every kernel of the f32 libraries multiplies on wgmma with TF32
+    operands (SASS ``HGMMA.64xNx8.F32.TF32``), and none keeps Ampere's
+    m16n8k8 mma.sync (``HMMA.1688``): ``cuobjdump -sass`` as
+    ``scripts/sass_counts.py`` runs it. (ptxas adds two ``HGMMA...F16``
+    of its own to each kernel, which multiply nothing of ours.)"""
+    from lgm_tpu_torch.ops import _build
+
+    libs = _build.build(["mha_fwd_f32", "mha_bwd_f32"])
+    kernels = 0
+    for name, so in libs.items():
+        counts = _build.sass_mma_counts(so)
+        assert counts, name
+        for kernel, c in counts.items():
+            kernels += 1
+            assert c["HGMMA_TF32"] > 0 and c["HMMA_1688"] == 0, (kernel, c)
+    # K1 at 1, 2, 4 (D 32) and 1, 2 (D 64) warpgroups; the dq and dK/dV
+    # kernels at 1 and 2 (D 32) and 1 (D 64).
+    assert kernels == 5 + 3 + 3
 
 
 def test_mha_f32_autograd_launches_both_kernels(full_f32):

@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import torch
 
 from lgm_tpu.ops.mha import mha_kresident
-from lgm_tpu_torch.ops.mha import (F32_ROUTE, ROUTES, f32_warps,
+from lgm_tpu_torch.ops.mha import (F32_ROUTE, ROUTES, f32_warpgroups,
                                    kernel_takes, launch_plan, mha, mha_bwd,
                                    mha_bwd_f32, mha_bwd_reference, mha_fwd,
-                                   mha_fwd_f32, mha_reference, route,
-                                   warpgroups)
+                                   mha_fwd_f32, mha_reference,
+                                   mha_split_tf32, route, warpgroups)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -372,18 +372,30 @@ def test_f32_plain_versions_match_kresident(S, D):
 
 
 def test_f32_launch_plan_is_the_warps():
-    """f32 inputs take the one design of the f32 kernels, blocks of 8 warps
-    (128 rows) where those fill every SM at least once, else 4 (64 rows),
-    over the queries (fwd, dq) and the keys (dkv)."""
-    for BH, S, vp in ((16, 4096, 1), (32, 4096, 2), (16, 256, 1),
-                      (32, 1024, 4), (128, 4096, 1), (16, 256, 4)):
-        plan = launch_plan(BH, S // vp, S, 32, H100_SMS, torch.float32)
+    """f32 inputs take the one design of the f32 kernels (3xTF32 on
+    wgmma), blocks of 64-row consumer warpgroups: K1 as the bf16 K1 (4 at
+    D = 32 where 256-row blocks fill every SM, else 2 where 128-row blocks
+    outnumber the SMs, else 1), the dq and dK/dV kernels at most 2 at D =
+    32 and 1 at D = 64; each a whole number of blocks over the queries
+    (fwd, dq) and the keys (dkv)."""
+    for BH, S, D, vp in ((16, 4096, 32, 1), (32, 4096, 32, 2),
+                         (16, 256, 64, 1), (32, 1024, 64, 4),
+                         (128, 4096, 32, 1), (16, 256, 64, 4),
+                         (16, 1024, 64, 1), (16, 4096, 32, 4)):
+        plan = launch_plan(BH, S // vp, S, D, H100_SMS, torch.float32)
         assert plan["route"] == F32_ROUTE
+        assert plan == dict(route=F32_ROUTE, **f32_warpgroups(
+            BH, S // vp, S, D, H100_SMS))
+        fwd = warpgroups(BH, S // vp, H100_SMS, D)
+        assert plan["fwd"] == fwd
+        assert plan["dq"] == (1 if D == 64 else min(2, fwd))
+        assert plan["dkv"] == (1 if D == 64 else
+                               min(2, warpgroups(BH, S, H100_SMS, D)))
         for key, rows in (("fwd", S // vp), ("dq", S // vp), ("dkv", S)):
-            want = 8 if rows % 128 == 0 and rows // 128 * BH >= H100_SMS \
-                else 4
-            assert plan[key] == f32_warps(BH, rows, H100_SMS) == want
-            assert rows % (16 * want) == 0
+            assert rows % (64 * plan[key]) == 0
+    # LGM big's S 4096 sites: four consumers in K1, two in K1ᵇ's kernels.
+    assert launch_plan(32, 4096, 4096, 32, H100_SMS, torch.float32) == dict(
+        route=F32_ROUTE, fwd=4, dq=2, dkv=2)
 
 
 def test_f32_wrappers_take_plain_versions_on_cpu_and_count_nothing():
@@ -394,7 +406,7 @@ def test_f32_wrappers_take_plain_versions_on_cpu_and_count_nothing():
                                    dtype=torch.float32)
                    for s in (64, 128, 128, 64))
     counts = (mha_fwd_f32.launches, mha_bwd_f32.launches, mha_fwd.launches,
-              mha_bwd.launches)
+              mha_bwd.launches, mha_split_tf32.launches)
     o, lse = mha_fwd_f32(q, k, v, 0.2, return_lse=True)
     ref, ref_lse = mha_reference(q, k, v, 0.2, return_lse=True)
     assert torch.equal(o, ref) and torch.equal(lse, ref_lse)
@@ -407,4 +419,5 @@ def test_f32_wrappers_take_plain_versions_on_cpu_and_count_nothing():
     assert out.dtype == torch.float32 and torch.equal(out.detach(), ref)
     assert all(x.grad.dtype == torch.float32 for x in (qs, ks, vs))
     assert counts == (mha_fwd_f32.launches, mha_bwd_f32.launches,
-                      mha_fwd.launches, mha_bwd.launches) == (0, 0, 0, 0)
+                      mha_fwd.launches, mha_bwd.launches,
+                      mha_split_tf32.launches) == (0, 0, 0, 0, 0)
