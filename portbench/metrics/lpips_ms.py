@@ -1,0 +1,9 @@
+"""``lpips_ms``: host milliseconds a step inside the program's range
+``lpips`` (``record_function``), from the traced window."""
+
+
+def read(tl, r):
+    s, n = tl.span_s("lpips")
+    if not n or not r["units"]:
+        return None
+    return 1e3 * s / r["units"]
