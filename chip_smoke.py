@@ -257,10 +257,14 @@ K3B_REL_TOL = 1e-4
 K3_ROWS = 10
 
 
-# record_function ranges of the train step: forward (lgm, render, lpips
-# inside it), backward, optimizer.
+# The program's ranges (lgm_tpu_torch/trace.py): the train step's forward
+# (lgm, render, lpips inside it), backward and optimizer, the renderer's
+# phases a view, the backward ranges on autograd's thread, the orbit's
+# copy to the host.
 SCOPES = ("loss_forward", "lgm", "render", "lpips", "loss_backward",
-          "optimizer")
+          "optimizer", "render.project", "render.bin", "render.gather",
+          "render.composite", "render.composite.backward", "render.backward",
+          "lpips.backward", "lgm.backward", "orbit.to_host")
 # Steps of each training phase: one cold, the rest warm.
 N_STEPS = 4
 
@@ -1531,7 +1535,7 @@ def phase_main(dev):
     mha_fwd.launches = 0
     fs.composite_fwd.launches = 0
     k1_before = k1_route_launches()
-    with route_counts() as routes:
+    with route_counts() as routes, process_clock() as clock:
         res = infer.process(opt, mv, os.path.join(work, "big"),
                             device=str(dev), model=model)
     k1_routes = check_k1_routes("main", k1_before, k1_site_dims(model),
@@ -1611,8 +1615,8 @@ def phase_main(dev):
     emit("main", preset="big", gaussians=list(gs.shape), frames=list(
         frames.shape), ply=os.path.relpath(res["ply"], ROOT),
         video=os.path.relpath(res["video"], ROOT), load_s=load_s,
-        forward_s=res["forward_s"], forward_warm_s=sorted(warm)[1],
-        orbit_s=res["orbit_s"], orbit_fps=180 / res["orbit_s"],
+        forward_s=clock["forward_s"], forward_warm_s=sorted(warm)[1],
+        orbit_s=clock["orbit_s"], orbit_fps=180 / clock["orbit_s"],
         launches=launches, attention_routes=routes, **k1_routes,
         frame0_vs_plain_max=frame_err,
         frame0_vs_oracle_mean=oracle_err,
@@ -2145,7 +2149,7 @@ def phase_fp32(dev, mv):
     os.makedirs(work, exist_ok=True)
     torch.cuda.reset_peak_memory_stats(dev)
     reset()
-    with route_counts() as routes:
+    with route_counts() as routes, process_clock() as clock:
         res = infer.process(opt, mv, os.path.join(work, "big_fp32"),
                             device=str(dev), model=model)
     launches = read()
@@ -2170,8 +2174,8 @@ def phase_fp32(dev, mv):
         infer.forward_gaussians(model, mv)
         warm.append(time.perf_counter() - t0)
     emit("fp32_infer", preset="big", mixed_precision="fp32",
-         forward_s=res["forward_s"], forward_warm_s=sorted(warm)[1],
-         orbit_s=res["orbit_s"], launches=launches, attention_routes=routes,
+         forward_s=clock["forward_s"], forward_warm_s=sorted(warm)[1],
+         orbit_s=clock["orbit_s"], launches=launches, attention_routes=routes,
          gaussians_vs_plain_attention_max=float(np.abs(gs - gs_plain).max()),
          peak_mem_gb=infer_peak)
     profile_window("fp32_forward",
@@ -2460,6 +2464,42 @@ def phase_k1_bwd_diffusion(dev):
     return fwd, bwd
 
 
+def timed(fn, stage: str, times: dict):
+    """``fn`` timed from a device synchronize before each call to one after
+    it, its wall seconds summed into ``times[stage]``."""
+    import torch
+
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[stage] = times.get(stage, 0.0) + time.perf_counter() - t0
+        return out
+    return call
+
+
+def process_clock():
+    """A context in which spies time ``infer.process``'s two device calls:
+    yields {"forward_s", "orbit_s"} (``infer.forward_gaussians``,
+    ``infer.render_orbit_video``), as ``timed`` takes them."""
+    import contextlib
+    from unittest import mock
+
+    from lgm_tpu_torch import infer
+
+    @contextlib.contextmanager
+    def clock():
+        times = {}
+        with mock.patch.object(infer, "forward_gaussians", timed(
+                infer.forward_gaussians, "forward_s", times)), \
+                mock.patch.object(infer, "render_orbit_video", timed(
+                    infer.render_orbit_video, "orbit_s", times)):
+            yield times
+
+    return clock()
+
+
 def stage_clock(pipe):
     """A context in which spies on ``pipe``'s methods time the pipeline's
     stages: yields {stage: wall seconds}, each call timed from a device
@@ -2470,8 +2510,6 @@ def stage_clock(pipe):
     import contextlib
     from unittest import mock
 
-    import torch
-
     from lgm_tpu_torch import infer
 
     stages = {"encode_prompt": "clip_s", "encode_image": "clip_s",
@@ -2481,24 +2519,13 @@ def stage_clock(pipe):
     @contextlib.contextmanager
     def clock():
         times = {}
-
-        def timed(fn, stage):
-            def call(*args, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kw)
-                torch.cuda.synchronize()
-                times[stage] = (times.get(stage, 0.0)
-                                + time.perf_counter() - t0)
-                return out
-            return call
-
         with contextlib.ExitStack() as stack:
             for method, stage in stages.items():
                 stack.enter_context(mock.patch.object(
-                    pipe, method, timed(getattr(pipe, method), stage)))
+                    pipe, method, timed(getattr(pipe, method), stage,
+                                        times)))
             stack.enter_context(mock.patch.object(
-                infer, "resize", timed(infer.resize, "views_s")))
+                infer, "resize", timed(infer.resize, "views_s", times)))
             yield times
 
     return clock()
@@ -2666,6 +2693,7 @@ def phase_image_to_3d(dev, model):
         fs.composite_fwd.launches = 0
         k1_before = k1_route_launches()
         with route_counts(mv) as routes, stage_clock(pipe) as times, \
+                process_clock() as clock, \
                 mock.patch.object(pipe.unet, "forward", spy_unet), \
                 mock.patch.object(mv, "mha", spy_mha(mv.mha)):
             torch.cuda.synchronize()
@@ -2696,7 +2724,7 @@ def phase_image_to_3d(dev, model):
                 f"views {views.shape} in [{views.min()}, {views.max()}], "
                 f"gaussians {gs.shape} finite {np.isfinite(gs).all()}, "
                 f"frames {res['frames'].shape}")
-        times.update(forward_s=res["forward_s"], orbit_s=res["orbit_s"],
+        times.update(clock,
                      step_ms=times["denoise_s"] / N_DIFFUSION_STEPS * 1e3)
         return launches, routes, times, views.shape, gs.shape
 
@@ -4096,9 +4124,8 @@ def profile_window(name, fn):
             for e in events if e.key not in SCOPES]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    # Each named range (train.py, lgm.py) as a span of the device timeline,
-    # from its first kernel's start to its last one's end, idle included;
-    # the backward runs on autograd's own thread and gets no span.
+    # Each named range (SCOPES) as a span of the device timeline, from its
+    # first kernel's start to its last one's end, idle included.
     spans = {e.key: e.self_device_time_total / 1e3
              for e in events if e.key in SCOPES}
     emit("profile", window=name, wall_ms=wall_ms, device_ms=device_ms,

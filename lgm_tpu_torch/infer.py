@@ -33,13 +33,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.config import CONFIGS, Options
 from lgm_tpu_torch.data.synthetic import IMAGENET_MEAN, IMAGENET_STD
 from lgm_tpu_torch.io import image as imageio
@@ -156,8 +156,9 @@ def render_orbit_video(gaussians, opt: Options, n_frames: int = 180,
                        n_devices: Optional[int] = None) -> np.ndarray:
     """Render a 360° orbit of [N, 14] Gaussians: uint8 [n_frames, S, S, 3].
     Frames are rendered ``chunk`` at a time and moved to the host as
-    uint8; ``fancy`` ramps the scale modifier from 0 to 1 over the first
-    quarter (ref: infer.py:113-130). ``process`` writes the result.
+    uint8 (the range ``orbit.to_host`` of a profiled run); ``fancy`` ramps
+    the scale modifier from 0 to 1 over the first quarter (ref:
+    infer.py:113-130). ``process`` writes the result.
 
     Several cards (``orbit_split``: all of them by default on CUDA): each
     chunk's frames are split evenly over ``cuda:0 … cuda:n−1`` in order,
@@ -181,7 +182,8 @@ def render_orbit_video(gaussians, opt: Options, n_frames: int = 180,
             img = render_views(g_d, cams_d[lo:hi][None], opt.output_size,
                                tan, scale_modifier=sm, dup=32)["image"][0]
             # x255 then truncation toward zero, as the JAX path's astype.
-            return (img * 255.0).to(torch.uint8).cpu().numpy()
+            with trace.span("orbit.to_host"):
+                return (img * 255.0).to(torch.uint8).cpu().numpy()
 
     outs = []
     pool = ThreadPoolExecutor(n) if n > 1 else None
@@ -257,33 +259,21 @@ def process(opt: Options, mv_images: np.ndarray, out_stem: str,
             resume: Optional[str] = None, device: str = "cuda",
             model: Optional[LGM] = None) -> dict:
     """mv_images [4, H, W, 3] in [0, 1] -> writes ``<stem>.ply`` and the
-    orbit. Returns a dict: ``gaussians`` [1, N, 14], ``frames`` uint8,
-    ``ply`` and ``video`` paths, and the wall seconds of the forward pass
-    (``forward_s``) and of the orbit render (``orbit_s``), each ending in
-    a device synchronize."""
-    dev = resolve_device(device)
+    orbit. Returns a dict: ``gaussians`` [1, N, 14], ``frames`` uint8, and
+    the ``ply`` and ``video`` paths. A profiled run reads the forward and
+    the orbit from the ranges ``lgm`` and ``render``."""
+    resolve_device(device)
     if model is None:
         model = load_model(opt, resume, device)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    sync()
-    t0 = time.perf_counter()
     gaussians = forward_gaussians(model, mv_images)
-    t1 = time.perf_counter()
     ply_path = out_stem + ".ply"
     save_ply(gaussians, ply_path)
-    sync()
-    t2 = time.perf_counter()
     frames = render_orbit_video(gaussians[0], opt, fancy=opt.fancy_video,
                                 device=device)
-    t3 = time.perf_counter()
     video = write_video(out_stem + ".mp4", frames, fps=30)
     print(f"wrote {ply_path} and {video}")
     return {"gaussians": gaussians, "frames": frames, "ply": ply_path,
-            "video": video, "forward_s": t1 - t0, "orbit_s": t3 - t2}
+            "video": video}
 
 
 def main(argv=None):

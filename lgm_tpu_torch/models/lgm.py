@@ -22,9 +22,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.config import Options
 from lgm_tpu_torch.models.init import init_like_flax_
 from lgm_tpu_torch.models.lpips import LPIPS
@@ -63,7 +63,11 @@ class LGM(nn.Module):
     U-Net (``parallel/dist.py``): ``images`` then holds this rank's V/vp
     views of each scene, and the Gaussians of the group's views are
     gathered in view order before activation, as lgm_tpu's
-    ``gather_gaussians``, so every rank returns all of them."""
+    ``gather_gaussians``, so every rank returns all of them.
+
+    A call is the range ``lgm`` of a profiled run, and its backward, to the
+    end of the backward pass, the range ``lgm.backward``
+    (``lgm_tpu_torch/trace.py``)."""
 
     def __init__(self, opt: Options, dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
@@ -86,19 +90,22 @@ class LGM(nn.Module):
             init_like_flax_(self, generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        B, V, H, W, C = images.shape
-        x = images.reshape(B * V, H, W, C).permute(0, 3, 1, 2)
-        x = self.unet(x, V, self.views_group)
-        x = F.conv2d(x.float(), self.conv.weight.float(),
-                     self.conv.bias.float())
-        s = self.opt.splat_size
-        # [B*V, 14, s, s] -> [B, V*s*s, 14] in (view, row, col) order.
-        x = x.permute(0, 2, 3, 1).reshape(B, V * s * s, 14)
-        if self.views_group is not None:
-            # Before the activation: its quaternion normalisation runs
-            # across all of a scene's Gaussians (trap C1).
-            x = dist.gather_views(x, 1, self.views_group)
-        return activate_gaussians(x)
+        with trace.span("lgm"):
+            bwd = trace.backward_span("lgm.backward")
+            images = bwd.inputs(images)
+            B, V, H, W, C = images.shape
+            x = images.reshape(B * V, H, W, C).permute(0, 3, 1, 2)
+            x = self.unet(x, V, self.views_group)
+            x = F.conv2d(x.float(), self.conv.weight.float(),
+                         self.conv.bias.float())
+            s = self.opt.splat_size
+            # [B*V, 14, s, s] -> [B, V*s*s, 14] in (view, row, col) order.
+            x = x.permute(0, 2, 3, 1).reshape(B, V * s * s, 14)
+            if self.views_group is not None:
+                # Before the activation: its quaternion normalisation runs
+                # across all of a scene's Gaussians (trap C1).
+                x = dist.gather_views(x, 1, self.views_group)
+            return bwd.outputs(activate_gaussians(x))[0]
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -163,7 +170,9 @@ class LGMWithLoss(nn.Module):
     state); it exists when ``opt.lambda_lpips > 0``. The rasterizer and the
     loss run in f32 whatever ``dtype`` the networks compute in.
     ``generator`` draws both networks' initial weights, the LGM's first
-    (``LGM``, ``LPIPS``)."""
+    (``LGM``, ``LPIPS``). In a profiled run LPIPS is the range ``lpips``
+    and its backward ``lpips.backward``; the LGM and the renderer open
+    their own."""
 
     def __init__(self, opt: Options, dtype=torch.bfloat16,
                  backend: str = "flatsort",
@@ -201,19 +210,17 @@ class LGMWithLoss(nn.Module):
     def forward(self, data: Dict[str, torch.Tensor],
                 bg_color: torch.Tensor) -> Dict[str, torch.Tensor]:
         opt = self.opt
-        with record_function("lgm"):
-            gaussians = self.lgm(data["input"])
+        gaussians = self.lgm(data["input"])
         tan_half_fov = float(np.tan(0.5 * np.deg2rad(opt.fovy)))
         B, V = data["cam_view"].shape[:2]
         bg = torch.broadcast_to(bg_color.float(), (B, V, 3))
-        with record_function("render"):
-            rendered = render_views(
-                gaussians.float(), data["cam_view"], opt.output_size,
-                tan_half_fov, bg_color=bg, backend=self.backend,
-                # The loss reads image and alpha only (R = 9 slot rows).
-                with_depth=False, tile_h=opt.tile_h, tile_w=opt.tile_w,
-                max_per_tile=opt.max_gaussians_per_tile,
-                dup=opt.rasterizer_dup or 16)
+        rendered = render_views(
+            gaussians.float(), data["cam_view"], opt.output_size,
+            tan_half_fov, bg_color=bg, backend=self.backend,
+            # The loss reads image and alpha only (R = 9 slot rows).
+            with_depth=False, tile_h=opt.tile_h, tile_w=opt.tile_w,
+            max_per_tile=opt.max_gaussians_per_tile,
+            dup=opt.rasterizer_dup or 16)
         pred_images = rendered["image"]   # [B, V, S, S, 3]
         pred_alphas = rendered["alpha"]   # [B, V, S, S, 1]
 
@@ -238,8 +245,10 @@ class LGMWithLoss(nn.Module):
             loss = loss + opt.lambda_scale_reg * loss_reg
 
         if self.lpips_loss is not None:
-            with record_function("lpips"):
-                loss_lpips = self._lpips(pred_images, gt_images)
+            with trace.span("lpips"):
+                bwd = trace.backward_span("lpips.backward")
+                loss_lpips, = bwd.outputs(
+                    self._lpips(bwd.inputs(pred_images), gt_images))
             out["loss_lpips"] = loss_lpips
             loss = loss + opt.lambda_lpips * loss_lpips
 

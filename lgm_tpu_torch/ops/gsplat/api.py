@@ -6,6 +6,10 @@ composite. ``backend="pallas_v1"`` (lgm_tpu's name for it) selects the v1
 tiled rasterizer (``tiled.py``, kernel K3), which has no depth channel;
 ``backend="reference"`` the exact full-image oracle (``reference.py``), for
 tests.
+
+Each call is the range ``render`` of a profiled run, and, where autograd
+records it, its backward the range ``render.backward``
+(``lgm_tpu_torch/trace.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.ops.gsplat.flatsort import (render_views_flatsort,
                                                 stack_views)
 from lgm_tpu_torch.ops.gsplat.reference import render_reference
@@ -53,33 +58,36 @@ def render_views(
     [B, V, S, S, 1] and, with depth on the flatsort and reference
     backends, ``depth`` [B, V, S, S, 1] (NHWC).
     """
-    B, V = cam_view.shape[:2]
-    dev = gaussians.device
-    if bg_color is None:
-        bg_color = torch.ones(3, device=dev)
-    bg = torch.broadcast_to(bg_color.to(dev, torch.float32), (B, V, 3))
+    with trace.span("render"):
+        bwd = trace.backward_span("render.backward")
+        gaussians = bwd.inputs(gaussians)
+        B, V = cam_view.shape[:2]
+        dev = gaussians.device
+        if bg_color is None:
+            bg_color = torch.ones(3, device=dev)
+        bg = torch.broadcast_to(bg_color.to(dev, torch.float32), (B, V, 3))
 
-    if backend == "flatsort":
-        out = render_views_flatsort(
-            gaussians, cam_view, image_size, tan_half_fov, bg,
-            scale_modifier, tile_h, tile_w, dup, max_per_tile, with_depth)
-    elif backend == "pallas_v1":
-        out = render_views_tiled(
-            gaussians, cam_view, image_size, tan_half_fov, bg,
-            scale_modifier, tile_h, tile_w, max_per_tile)
-    elif backend == "reference":
-        views = [render_reference(gaussians[b], cam_view[b, v], image_size,
-                                  tan_half_fov, bg[b, v], scale_modifier)
-                 for b in range(B) for v in range(V)]
-        out = stack_views(views, B, V)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+        if backend == "flatsort":
+            out = render_views_flatsort(
+                gaussians, cam_view, image_size, tan_half_fov, bg,
+                scale_modifier, tile_h, tile_w, dup, max_per_tile, with_depth)
+        elif backend == "pallas_v1":
+            out = render_views_tiled(
+                gaussians, cam_view, image_size, tan_half_fov, bg,
+                scale_modifier, tile_h, tile_w, max_per_tile)
+        elif backend == "reference":
+            views = [render_reference(gaussians[b], cam_view[b, v], image_size,
+                                      tan_half_fov, bg[b, v], scale_modifier)
+                     for b in range(B) for v in range(V)]
+            out = stack_views(views, B, V)
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
 
-    result = {"image": torch.clamp(out["image"], 0.0, 1.0),
-              "alpha": out["alpha"][..., None]}
-    if with_depth and "depth" in out:
-        result["depth"] = out["depth"][..., None]
-    return result
+        result = {"image": torch.clamp(out["image"], 0.0, 1.0),
+                  "alpha": out["alpha"][..., None]}
+        if with_depth and "depth" in out:
+            result["depth"] = out["depth"][..., None]
+        return dict(zip(result, bwd.outputs(*result.values())))
 
 
 def render(

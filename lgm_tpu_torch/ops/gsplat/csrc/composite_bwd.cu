@@ -26,6 +26,14 @@
 // state [T, MPT / 128, 6, P], K2's pixel state at each chunk boundary (T,
 // then the accumulators r, g, b, alpha, depth; composite_fwd.cu).
 //
+// When asked (work != nullptr: a profiled run), each block adds, once at
+// its end, the work the data gave it: to work[0] its visited slots times P
+// (the (pixel, slot) pairs its replay visits), to work[1] the bytes it
+// reads that the shapes do not fix: the state's T row where the chunk
+// starts below the tile's count, and where the chunk is live the rest of
+// its state, its slot rows and, in the tile's first chunk, fo's and go's
+// rows 0-5.
+//
 // What bounds it on an H100: like K2, the (pixel, slot) pairs the replay
 // visits, each one exp on the SFU and ~45 f32 operations where it
 // accumulates; plus, per slot, a sum over the tile's pixels of R values.
@@ -79,7 +87,8 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
                          const float* __restrict__ fo,
                          const float* __restrict__ go,
                          const float* __restrict__ state,
-                         float* __restrict__ dparams, int mpt, int R,
+                         float* __restrict__ dparams,
+                         unsigned long long* __restrict__ work, int mpt, int R,
                          int tile_h, int tile_w, int tiles_x) {
   extern __shared__ __align__(16) float smem[];
   float* slots = smem;                       // [kChunk][kSlotStride]
@@ -109,6 +118,8 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
   }
   if (c0 >= count || !__syncthreads_or(open)) {
     for (int i = tid; i < kChunk * R; i += blockDim.x) dblk[i] = 0.f;
+    if (work && tid == 0 && c0 < count)
+      atomicAdd(work + 1, (unsigned long long)P * 4);
     return;
   }
   // This thread's pixels: tid, tid + blockDim.x, ...
@@ -216,12 +227,18 @@ __global__ void __launch_bounds__(kMaxPix / PPT, PPT == 4 ? 2 : 1)
     }
     dblk[i] = acc;
   }
+  if (work && tid == 0) {
+    atomicAdd(work, (unsigned long long)n * P);
+    atomicAdd(work + 1,
+              4ull * ((unsigned long long)n * R + (c0 == 0 ? 18 : 6) * P));
+  }
 }
 
 template <int PPT>
 int launch(const float* params, const int* counts, const float* fo,
-           const float* go, const float* state, float* dparams, int T, int mpt,
-           int R, int tile_h, int tile_w, int tiles_x, cudaStream_t stream) {
+           const float* go, const float* state, float* dparams,
+           unsigned long long* work, int T, int mpt, int R, int tile_h,
+           int tile_w, int tiles_x, cudaStream_t stream) {
   const int threads = tile_h * tile_w / PPT;
   const size_t smem =
       (kChunk * kSlotStride + (threads / 32) * kChunk * kVals) * sizeof(float);
@@ -230,7 +247,8 @@ int launch(const float* params, const int* counts, const float* fo,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   composite_bwd_kernel<PPT><<<T * (mpt / kChunk), threads, smem, stream>>>(
-      params, counts, fo, go, state, dparams, mpt, R, tile_h, tile_w, tiles_x);
+      params, counts, fo, go, state, dparams, work, mpt, R, tile_h, tile_w,
+      tiles_x);
   return (int)cudaGetLastError();
 }
 
@@ -240,14 +258,15 @@ extern "C" {
 
 // params, dparams [T, mpt, R] f32; counts [T] i32; fo, go [T, 8, tile_h *
 // tile_w] f32; state [T, mpt / 128, 6, tile_h * tile_w] f32 from
-// composite_fwd_f32; all contiguous on device ``device``. R in {9, 10}; mpt
-// a multiple of 128; tile_h * tile_w a multiple of 32, at most 1024 (4
-// pixels a thread where it is a multiple of 128, else 2 or 1). Launches on
-// ``stream``; returns cudaGetLastError().
+// composite_fwd_f32; work null or int64 [2] (pairs, bytes added to); all
+// contiguous on device ``device``. R in {9, 10}; mpt a multiple of 128;
+// tile_h * tile_w a multiple of 32, at most 1024 (4 pixels a thread where it
+// is a multiple of 128, else 2 or 1). Launches on ``stream``; returns
+// cudaGetLastError().
 int composite_bwd_f32(const void* params, const void* counts, const void* fo,
-                      const void* go, const void* state, void* dparams, int T,
-                      int mpt, int R, int tile_h, int tile_w, int tiles_x,
-                      void* stream, int device) {
+                      const void* go, const void* state, void* dparams,
+                      void* work, int T, int mpt, int R, int tile_h, int tile_w,
+                      int tiles_x, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int P = tile_h * tile_w;
@@ -259,12 +278,16 @@ int composite_bwd_f32(const void* params, const void* counts, const void* fo,
   auto* g = static_cast<const float*>(go);
   auto* s = static_cast<const float*>(state);
   auto* d = static_cast<float*>(dparams);
+  auto* w = static_cast<unsigned long long*>(work);
   auto* st = static_cast<cudaStream_t>(stream);
   if (P % 128 == 0)
-    return launch<4>(p, c, f, g, s, d, T, mpt, R, tile_h, tile_w, tiles_x, st);
+    return launch<4>(p, c, f, g, s, d, w, T, mpt, R, tile_h, tile_w, tiles_x,
+                     st);
   if (P % 64 == 0)
-    return launch<2>(p, c, f, g, s, d, T, mpt, R, tile_h, tile_w, tiles_x, st);
-  return launch<1>(p, c, f, g, s, d, T, mpt, R, tile_h, tile_w, tiles_x, st);
+    return launch<2>(p, c, f, g, s, d, w, T, mpt, R, tile_h, tile_w, tiles_x,
+                     st);
+  return launch<1>(p, c, f, g, s, d, w, T, mpt, R, tile_h, tile_w, tiles_x,
+                   st);
 }
 
 const char* kernel_error_name(int err) {

@@ -27,6 +27,12 @@
 // its final values. K2ᵇ (composite_bwd.cu) starts each (tile, chunk) block
 // from them: the T it votes on is the one the forward voted on, bit for bit.
 //
+// When asked (work != nullptr: a profiled run), it also counts its own
+// work, which the data decides: the cluster's first block adds, once at
+// its end, the tile's visited slots times P to work[0] (the (pixel, slot)
+// pairs the chunk loop visits) and times R * 4 to work[1] (the slot rows'
+// bytes). The chunk loop itself is the same with and without.
+//
 // What bounds it on an H100: the work depends on the data. Each (pixel,
 // slot) pair the chunk loop visits costs one exp on the SFU (16 per clock
 // per SM) and ~25 f32 operations (67 TFLOP/s outside the tensor cores);
@@ -74,7 +80,8 @@ __global__ void __launch_bounds__(kMaxPix / (CS * PPT))
     composite_fwd_kernel(const float* __restrict__ params,
                          const int* __restrict__ counts,
                          float* __restrict__ out, float* __restrict__ state,
-                         int mpt, int R, int tile_h, int tile_w, int tiles_x) {
+                         unsigned long long* __restrict__ work, int mpt, int R,
+                         int tile_h, int tile_w, int tiles_x) {
   __shared__ __align__(16) float raw[2][kChunk * kMaxRows];
   __shared__ float4 slots[kChunk * 3];
   __shared__ int flags[2];
@@ -101,6 +108,7 @@ __global__ void __launch_bounds__(kMaxPix / (CS * PPT))
   const int nc = mpt / kChunk;
   float* st = state ? state + (size_t)tile * nc * 6 * P + base + tid : nullptr;
   int written = 0;  // boundaries of the state written
+  int visited = 0;  // slots composited
   auto keep_state = [&]() {
     float* s = st + (size_t)written++ * 6 * P;
 #pragma unroll
@@ -145,6 +153,7 @@ __global__ void __launch_bounds__(kMaxPix / (CS * PPT))
     for (int j = tid; j < n; j += nthr)
       stage_slot(raw[c & 1] + j * R, R, tox, toy, slots + 3 * j);
     if (!vote.combine(c, mine)) break;
+    visited += n;
     __syncthreads();  // the staged slots
     // Four slots an iteration: ~5% faster than the compiler's own unroll
     // (NVIDIA H100 80GB HBM3, 700 W).
@@ -169,6 +178,10 @@ __global__ void __launch_bounds__(kMaxPix / (CS * PPT))
   vote.finish();
   if (st)
     while (written < nc) keep_state();
+  if (work && tid == 0 && tile_cluster::block_rank<CS>() == 0) {
+    atomicAdd(work, (unsigned long long)visited * P);
+    atomicAdd(work + 1, (unsigned long long)visited * R * 4);
+  }
   float* o = out + (size_t)tile * 8 * P + base + tid;
 #pragma unroll
   for (int p = 0; p < PPT; ++p) {
@@ -186,11 +199,11 @@ __global__ void __launch_bounds__(kMaxPix / (CS * PPT))
 
 template <int CS, int PPT>
 int launch(const float* params, const int* counts, float* out, float* state,
-           int T, int mpt, int R, int tile_h, int tile_w, int tiles_x,
-           cudaStream_t stream) {
+           unsigned long long* work, int T, int mpt, int R, int tile_h,
+           int tile_w, int tiles_x, cudaStream_t stream) {
   return tile_cluster::launch_tiles<CS>(
       composite_fwd_kernel<CS, PPT>, T, tile_h * tile_w / (CS * PPT), stream,
-      params, counts, out, state, mpt, R, tile_h, tile_w, tiles_x);
+      params, counts, out, state, work, mpt, R, tile_h, tile_w, tiles_x);
 }
 
 }  // namespace
@@ -199,13 +212,14 @@ extern "C" {
 
 // params [T, mpt, R] f32 (16-byte aligned), counts [T] i32, out [T, 8,
 // tile_h * tile_w] f32, state null or [T, mpt / 128, 6, tile_h * tile_w]
-// f32, all contiguous on device ``device``; R in {9, 10}; mpt a multiple of
-// 128; tile_h * tile_w at most 1024. ``cluster`` (1, 2, 4) blocks a tile and
+// f32, work null or int64 [2] (pairs, bytes added to), all contiguous on
+// device ``device``; R in {9, 10}; mpt a multiple of 128; tile_h * tile_w at
+// most 1024. ``cluster`` (1, 2, 4) blocks a tile and
 // ``ppt`` (1, 2, 4) pixels a thread, with tile_h * tile_w a multiple of
 // 32 cluster ppt (whole warps). Launches on ``stream``; returns the launch's
 // error.
 int composite_fwd_f32(const void* params, const void* counts, void* out,
-                      void* state, int T, int mpt, int R, int tile_h,
+                      void* state, void* work, int T, int mpt, int R, int tile_h,
                       int tile_w, int tiles_x, int cluster, int ppt,
                       void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -218,10 +232,12 @@ int composite_fwd_f32(const void* params, const void* counts, void* out,
   auto* c = static_cast<const int*>(counts);
   auto* o = static_cast<float*>(out);
   auto* s = static_cast<float*>(state);
+  auto* w = static_cast<unsigned long long*>(work);
   auto st = static_cast<cudaStream_t>(stream);
 #define K2_LAUNCH(CS, PPT)                                                  \
   if (cluster == CS && ppt == PPT)                                          \
-    return launch<CS, PPT>(p, c, o, s, T, mpt, R, tile_h, tile_w, tiles_x, st);
+    return launch<CS, PPT>(p, c, o, s, w, T, mpt, R, tile_h, tile_w, tiles_x, \
+                           st);
   K2_LAUNCH(1, 1) K2_LAUNCH(1, 2) K2_LAUNCH(1, 4)
   K2_LAUNCH(2, 1) K2_LAUNCH(2, 2) K2_LAUNCH(2, 4)
   K2_LAUNCH(4, 1) K2_LAUNCH(4, 2) K2_LAUNCH(4, 4)

@@ -26,6 +26,13 @@ Port of ``lgm_tpu/ops/gsplat/flatsort.py``. Per view:
    (tile, chunk), each starting from its chunk's stored state.
 5. ``_pack_output``: [T, 8, P] -> image / alpha / depth.
 
+In a profiled run (``lgm_tpu_torch/trace.py``) each view's steps 1-4 are
+the ranges ``render.project``, ``render.bin``, ``render.gather`` and
+``render.composite``, K2ᵇ is ``render.composite.backward``, and K2 and
+K2ᵇ count their launches and the work their data gives them
+(``composite_fwd.*``, ``composite_bwd.*``: the (pixel, slot) pairs they
+visit and the bytes they move), from which a roofline is read.
+
 Traps kept from the JAX module: the depth argsort is stable (as
 ``jnp.argsort``); the per-row sort of the [N, 2*dup] candidates keeps
 the first ``dup``; ``counts`` is capped at MPT; ``T * N < 2**31`` is
@@ -40,6 +47,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.ops import _build
 from lgm_tpu_torch.ops.gsplat.projection import (
     ALPHA_MAX,
@@ -55,7 +63,7 @@ T_EPS = 1e-4
 
 _SIGNATURES = {
     "composite_fwd_f32": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
@@ -63,7 +71,7 @@ _SIGNATURES = {
 
 _BWD_SIGNATURES = {
     "composite_bwd_f32": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_void_p, ctypes.c_int],
         ctypes.c_int,
     ),
@@ -219,18 +227,20 @@ def _prepare_view(gaussians, view, image_size, tan_half_fov,
         raise ValueError(f"{T} tiles x {N} splats exceed the 2**31 keys")
     MPT = _mpt(max_per_tile)
 
-    proj = project_gaussians(gaussians, view, S, tan_half_fov,
-                             scale_modifier)
-    with torch.no_grad():
+    with trace.span("render.project"):
+        proj = project_gaussians(gaussians, view, S, tan_half_fov,
+                                 scale_modifier)
+    with trace.span("render.bin"), torch.no_grad():
         meta = _flat_binning(proj, tiles_y, tiles_x, tile_h, tile_w, dup,
                              max_per_tile)
-    attrs_t = proj.attrs_t
-    if with_depth:
-        attrs_t = torch.cat([attrs_t, proj.depth[None]], dim=0)
-    attrs = _PermuteRows.apply(attrs_t.T, meta.order, meta.rank)
-    attrs = torch.cat([attrs, torch.zeros_like(attrs[:1])], dim=0)
-    params = _GatherRows.apply(attrs, meta.flat_rank)
-    return params.reshape(T, MPT, attrs.shape[1]), meta.counts
+    with trace.span("render.gather"):
+        attrs_t = proj.attrs_t
+        if with_depth:
+            attrs_t = torch.cat([attrs_t, proj.depth[None]], dim=0)
+        attrs = _PermuteRows.apply(attrs_t.T, meta.order, meta.rank)
+        attrs = torch.cat([attrs, torch.zeros_like(attrs[:1])], dim=0)
+        params = _GatherRows.apply(attrs, meta.flat_rank)
+        return params.reshape(T, MPT, attrs.shape[1]), meta.counts
 
 
 class _PermuteRows(torch.autograd.Function):
@@ -365,23 +375,59 @@ def composite_work(params, counts, tile_h, tile_w, tiles_x) -> dict:
             "tile_slots": visited}
 
 
+def _counted(kernel: str, params: torch.Tensor, written: int):
+    """In a profiled run, count a launch of ``kernel`` and the bytes its
+    shapes fix (each tile's count read, ``written`` f32 values a tile
+    written), and return the device slots its data's (pairs, bytes) are
+    added to; else None."""
+    work = trace.device_counters(kernel, params.device)
+    if work is not None:
+        trace.add(f"{kernel}.launches", 1)
+        trace.add(f"{kernel}.bytes", 4 * params.shape[0] * (1 + written))
+    return work
+
+
+def _bwd_work(counts, state, P: int, R: int) -> torch.Tensor:
+    """K2ᵇ's (pairs, bytes) from its data, as its blocks count them: a
+    (tile, chunk) block below the tile's count reads its state's T row; a
+    live one (its vote on that T passes) also the rest of its state and
+    its slots' rows, visits slots x P pairs and, in the tile's first chunk,
+    reads fo's and go's rows 0-5."""
+    counts = counts.long()[:, None]
+    c0 = torch.arange(state.shape[1], device=counts.device) * G_CHUNK
+    below = c0 < counts
+    live = below & (state[:, :, 0].amax(dim=-1) > T_EPS)
+    slots = (torch.clamp(counts - c0, 0, G_CHUNK) * live).sum()
+    rows = below.sum() + 5 * live.sum() + 12 * live[:, 0].sum()
+    return torch.stack([slots * P, 4 * (slots * R + rows * P)])
+
+
 def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
                   tile_w: int, tiles_x: int, return_state: bool = False):
     """K2 on a CUDA tensor, ``composite_reference`` on a CPU tensor. With
     ``return_state`` it also writes the pixel state at every chunk
     boundary, which ``composite_bwd`` starts its blocks from, and returns
-    (out, state)."""
+    (out, state). A profiled call counts (``_counted``) its launch, its
+    fixed bytes and, from the data, the pairs it visits and its slots'
+    rows."""
+    T, MPT, R = params.shape
+    P = tile_h * tile_w
+    # The output and, where asked, the state at every boundary.
+    written = 8 * P + (MPT // G_CHUNK * 6 * P if return_state else 0)
     if params.device.type == "cpu":
-        return composite_reference(params, counts, tile_h, tile_w, tiles_x,
-                                   return_state)
+        work = _counted("composite_fwd", params, written)
+        out, visited, _, state = _composite_plain(
+            params, counts, tile_h, tile_w, tiles_x, return_state)
+        if work is not None:
+            slots = visited.sum()
+            work += torch.stack([slots * P, slots * (R * 4)])
+        return (out, state) if return_state else out
     if params.device.type != "cuda":
         raise ValueError(f"composite_fwd: unsupported device {params.device}")
     if torch.is_grad_enabled() and params.requires_grad:
         raise NotImplementedError(
             "composite_fwd has no gradient of its own: call composite(), "
             "whose backward is K2ᵇ")
-    T, MPT, R = params.shape
-    P = tile_h * tile_w
     _check_kernel_inputs("composite_fwd", params, counts, tile_h, tile_w)
     if params.data_ptr() % 16:
         raise ValueError("composite_fwd kernel copies params in 16-byte "
@@ -391,9 +437,11 @@ def composite_fwd(params: torch.Tensor, counts: torch.Tensor, tile_h: int,
     state = (torch.empty(T, MPT // G_CHUNK, 6, P, dtype=torch.float32,
                          device=params.device) if return_state else None)
     lib = _build.load("composite_fwd", _SIGNATURES)
+    work = _counted("composite_fwd", params, written)
     err = lib.composite_fwd_f32(
         params.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        state.data_ptr() if return_state else None, T, MPT, R, tile_h,
+        state.data_ptr() if return_state else None,
+        work.data_ptr() if work is not None else None, T, MPT, R, tile_h,
         tile_w, tiles_x, cluster, ppt,
         torch.cuda.current_stream(params.device).cuda_stream,
         params.device.index)
@@ -538,14 +586,22 @@ def composite_bwd(params, counts, fo, go, tile_h: int, tile_w: int,
                   tiles_x: int, state=None) -> torch.Tensor:
     """K2ᵇ on CUDA tensors, fed K2's ``state`` (``composite_fwd(...,
     return_state=True)``), which it requires; ``composite_bwd_reference``
-    on CPU tensors, with or without the state."""
+    on CPU tensors, with or without the state. A profiled call counts
+    (``_counted``) its launch, its fixed bytes and, from the data, what
+    ``_bwd_work`` says."""
+    T, MPT, R = params.shape
+    P = tile_h * tile_w
     if params.device.type == "cpu":
+        # Every gradient row is written.
+        work = _counted("composite_bwd", params, MPT * R)
+        if work is not None:
+            work += _bwd_work(counts, state if state is not None else
+                              _composite_plain(params, counts, tile_h, tile_w,
+                                               tiles_x, True)[3], P, R)
         return composite_bwd_reference(params, counts, fo, go, tile_h,
                                        tile_w, tiles_x, state)
     if params.device.type != "cuda":
         raise ValueError(f"composite_bwd: unsupported device {params.device}")
-    T, MPT, R = params.shape
-    P = tile_h * tile_w
     _check_kernel_inputs("composite_bwd", params, counts, tile_h, tile_w,
                          (("fo", fo), ("go", go)))
     nc = MPT // G_CHUNK
@@ -558,10 +614,12 @@ def composite_bwd(params, counts, fo, go, tile_h: int, tile_w: int,
             f"{params.device} from composite_fwd(..., return_state=True)")
     dparams = torch.empty_like(params)
     lib = _build.load("composite_bwd", _BWD_SIGNATURES)
+    work = _counted("composite_bwd", params, MPT * R)
     err = lib.composite_bwd_f32(
         params.data_ptr(), counts.data_ptr(), fo.data_ptr(), go.data_ptr(),
-        state.data_ptr(), dparams.data_ptr(), T, MPT, R, tile_h, tile_w,
-        tiles_x, torch.cuda.current_stream(params.device).cuda_stream,
+        state.data_ptr(), dparams.data_ptr(),
+        work.data_ptr() if work is not None else None, T, MPT, R, tile_h,
+        tile_w, tiles_x, torch.cuda.current_stream(params.device).cuda_stream,
         params.device.index)
     _build.check(lib, err, "composite_bwd")
     composite_bwd.launches += 1
@@ -586,8 +644,9 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, go):
         params, counts, out, state = ctx.saved_tensors
-        dparams = composite_bwd(params, counts, out, go.contiguous(),
-                                *ctx.tiling, state=state)
+        with trace.span("render.composite.backward"):
+            dparams = composite_bwd(params, counts, out, go.contiguous(),
+                                    *ctx.tiling, state=state)
         return dparams, None, None, None, None
 
 
@@ -623,7 +682,8 @@ def render_flatsort(gaussians, view, image_size, tan_half_fov, bg_color,
     params, counts = _prepare_view(
         gaussians, view, image_size, tan_half_fov, scale_modifier, tile_h,
         tile_w, dup, max_per_tile, with_depth)
-    out = composite(params, counts, tile_h, tile_w, image_size // tile_w)
+    with trace.span("render.composite"):
+        out = composite(params, counts, tile_h, tile_w, image_size // tile_w)
     return _pack_output(out, bg_color, image_size, tile_h, tile_w,
                         with_depth)
 

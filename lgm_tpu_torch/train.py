@@ -16,7 +16,8 @@ Checkpoints carry the full state (parameters, optimizer state, step) as
 ``<workspace>/ckpt_{step}`` (``torch.save``); SIGTERM/SIGINT save after the
 in-flight step and ``--resume auto`` continues from the newest one.
 ``--profile-steps N`` writes a ``torch.profiler`` trace of steps
-[10, 10 + N) to ``<workspace>/trace``.
+[10, 10 + N) to ``<workspace>/trace``, with the program's ranges
+(``trace.py``).
 
 Run:  python -m lgm_tpu_torch.train big --workspace ws --total-steps N
       [--device cuda|cpu] [--rasterizer auto|pallas|pallas_v1|xla]
@@ -64,8 +65,8 @@ from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.config import Options, parse_cli
 from lgm_tpu_torch.infer import resolve_device
 from lgm_tpu_torch.models.lgm import LGMWithLoss
@@ -287,12 +288,12 @@ def train_step(state: TrainState, data: Dict, bg: torch.Tensor
     for p in params:
         p.grad = None
     # Named ranges, as lgm_tpu's named_scope: a torch.profiler trace
-    # attributes device time to each.
-    with record_function("loss_forward"):
+    # attributes device time to each (lgm_tpu_torch/trace.py).
+    with trace.span("loss_forward"):
         out = state.model(data, bg)
-    with record_function("loss_backward"):
+    with trace.span("loss_backward"):
         out["loss"].backward()
-    with record_function("optimizer"):
+    with trace.span("optimizer"):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         gnorm = global_norm(grads)

@@ -974,6 +974,46 @@ def test_compositor_variants_on_small_tiles(cuda, tile, monkeypatch):
     assert (tstate - tref_state).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("return_state", [False, True])
+def test_composite_kernels_count_their_work(cuda, return_state):
+    """In a profiled run (``lgm_tpu_torch/trace.py``) K2 and K2ᵇ count
+    their own work on the bench view: the pairs ``composite_work`` says,
+    and the bytes the plain versions count (``flatsort._counted``,
+    ``_bwd_work``). Without a profiler they count nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lgm_tpu_torch import trace
+
+    g, view, S = _bench_view(cuda)
+    with torch.no_grad():
+        params, counts = fs._prepare_view(g, view, S, TAN, 1.0, 32, 32, 32,
+                                          1024, True)
+        args = (params, counts, 32, 32, S // 32)
+        work = fs.composite_work(*args)
+        T, MPT, R = params.shape
+        P = 32 * 32
+        trace.reset()
+        res = fs.composite_fwd(*args, return_state=return_state)
+        assert trace.counters() == {}
+        with profile(activities=[ProfilerActivity.CPU]):
+            res = fs.composite_fwd(*args, return_state=return_state)
+            if return_state:
+                out, state = res
+                fs.composite_bwd(params, counts, out, torch.ones_like(out),
+                                 32, 32, S // 32, state=state)
+        c = trace.counters()
+        trace.reset()
+    fixed = 4 * T * (1 + 8 * P + (MPT // 128 * 6 * P if return_state else 0))
+    assert c["composite_fwd.launches"] == 1
+    assert c["composite_fwd.pairs"] == work["pairs"] > 0
+    assert c["composite_fwd.bytes"] == fixed + work["slots"] * R * 4
+    if return_state:
+        pairs, extra = fs._bwd_work(counts, state, P, R).tolist()
+        assert c["composite_bwd.launches"] == 1
+        assert c["composite_bwd.pairs"] == pairs == work["pairs"]
+        assert c["composite_bwd.bytes"] == 4 * T * (1 + MPT * R) + extra
+
+
 def test_composite_fwd_refuses_unaligned_params(cuda):
     """K2 copies a chunk's rows in 16-byte units: params that do not start
     on a 16-byte boundary are refused, not read past."""
