@@ -1023,6 +1023,152 @@ def phase_k2(dev, ptxas):
                 bound_by=b_by, library_ms=None)
 
 
+# The backward projection kernel against its plain version: f32 sums in
+# other orders and contracted into fmas, as a share of each gradient
+# column's largest |value| (tests/test_torch_kernels_gpu.py).
+PROJECT_BWD_COL_TOL = 2.0 ** -15
+
+
+def projection_bytes(N: int, R: int) -> dict:
+    """Bytes the projection kernels must move for N splats and R slot rows:
+    the forward reads the rows (14 f32) and writes mean2d, conic, depth,
+    the three radii, valid (1 byte) and the slot rows; the backward reads
+    the rows and the rows' cotangent and writes the gradient (14 f32). The
+    view's 64 bytes are left out."""
+    return {"fwd": N * (4 * 14 + 4 * (2 + 3 + 1 + 3 + R) + 1),
+            "bwd": N * (4 * 14 + 4 * R + 4 * 14)}
+
+
+def kernel_device_us(fn, name: str, calls: int = K1_LAUNCHES) -> float:
+    """Mean device time (us) of the kernels whose name holds ``name`` over
+    ``calls`` calls of ``fn``, from a ``torch.profiler`` trace: the
+    kernel's own time, where ``cuda_ms`` of a call this short measures the
+    host's enqueue."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key:
+            total += getattr(e, "self_device_time_total", None) or \
+                e.self_cuda_time_total
+            n += e.count
+    if n != calls:
+        raise AssertionError(f"{name}: {n} kernels traced over {calls} calls")
+    return total / n
+
+
+def phase_projection(dev):
+    """The projection kernels (``csrc/project_fwd.cu``, ``project_bwd.cu``)
+    on the train cell's scene shape, 65,536 splats at 512², through the
+    bench view with the depth row (R = 10, as the orbit runs it) and a
+    train camera without (R = 9, as the train step runs it): the forward
+    against ``project_gaussians`` bit for bit on every field, the backward
+    against ``project_gaussians_bwd_reference`` (column-wise, within
+    ``PROJECT_BWD_COL_TOL``) and for the same bits on a second call; each
+    kernel timed by the profiler (its device time alone), over K1_LAUNCHES
+    calls back to back (the wrapper's host time bounds those) and one call,
+    beside the plain chain's forward and its autograd backward, one call
+    each, and the bound by bytes."""
+    import numpy as np
+    import torch
+
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.data.synthetic import sample_poses
+    from lgm_tpu_torch.ops.gsplat import projection as pj
+    from lgm_tpu_torch.utils import camera
+
+    opt = CONFIGS["big"]
+    S = opt.output_size
+    tan = float(np.tan(0.5 * np.deg2rad(opt.fovy)))
+    g, bench_view = bench_scene(dev)
+    train_view = torch.as_tensor(camera.build_camera_inputs(
+        sample_poses(np.random.default_rng(21), opt), opt.fovy, opt.znear,
+        opt.zfar)["cam_view"][opt.num_input_views + 1], dtype=torch.float32,
+        device=dev)
+    N = g.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for cam, view, with_depth in (("bench", bench_view, True),
+                                  ("train", train_view, False)):
+        R = 10 if with_depth else 9
+        args = (g, view, S, tan, 1.0)
+        with torch.no_grad():
+            ours = pj.project_fwd(*args, with_depth)
+            ref = pj.project_gaussians(*args, with_depth)
+            torch.cuda.synchronize()
+            unequal = {f: int((getattr(ours, f) != getattr(ref, f)).sum())
+                       for f in pj.Projected._fields}
+            if any(unequal.values()):
+                raise AssertionError(f"projection forward ({cam}): elements "
+                                     f"not bit for bit {unequal}")
+            g_attrs = torch.randn(N, R, generator=gen, device=dev).T
+            grad = pj.project_bwd(*args, g_attrs)
+            again = pj.project_bwd(*args, g_attrs)
+            plain_grad = pj.project_gaussians_bwd_reference(*args, g_attrs)
+            torch.cuda.synchronize()
+            scale = plain_grad.abs().amax(dim=0)
+            col_err = float(((grad - plain_grad).abs().amax(dim=0)
+                             / scale).max())
+            if not col_err <= PROJECT_BWD_COL_TOL:
+                raise AssertionError(f"projection backward ({cam}): column "
+                                     f"error {col_err} > "
+                                     f"{PROJECT_BWD_COL_TOL}")
+            bitwise_repeat = bool(torch.equal(grad, again))
+            if not bitwise_repeat:
+                raise AssertionError(f"projection backward ({cam}): two "
+                                     f"calls differ")
+            fwd_ms = cuda_ms(lambda: pj.project_fwd(*args, with_depth),
+                             launches=K1_LAUNCHES)
+            fwd_one_ms = cuda_ms(lambda: pj.project_fwd(*args, with_depth))
+            bwd_ms = cuda_ms(lambda: pj.project_bwd(*args, g_attrs),
+                             launches=K1_LAUNCHES)
+            bwd_one_ms = cuda_ms(lambda: pj.project_bwd(*args, g_attrs))
+            fwd_us = kernel_device_us(
+                lambda: pj.project_fwd(*args, with_depth),
+                "project_fwd_kernel")
+            bwd_us = kernel_device_us(
+                lambda: pj.project_bwd(*args, g_attrs), "project_bwd_kernel")
+            plain_fwd_ms = cuda_ms(
+                lambda: pj.project_gaussians(*args, with_depth), reps=5)
+            reference_bwd_ms = cuda_ms(
+                lambda: pj.project_gaussians_bwd_reference(*args, g_attrs),
+                reps=5)
+        gl = g.clone().requires_grad_()
+        attrs_t = pj.project_gaussians(gl, *args[1:], with_depth).attrs_t
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            attrs_t, gl, g_attrs, retain_graph=True), reps=5)
+        del attrs_t
+        nbytes = projection_bytes(N, R)
+        fwd_bound, fwd_by = bound({}, nbytes["fwd"])
+        bwd_bound, bwd_by = bound({}, nbytes["bwd"])
+        emit("projection", camera=cam, splats=N, image=S, rows=R,
+             valid=int(ref.valid.sum()), bit_for_bit=True,
+             bwd_col_err=col_err, tol=PROJECT_BWD_COL_TOL,
+             bitwise_repeat=bitwise_repeat, fwd_device_us=fwd_us,
+             bwd_device_us=bwd_us, fwd_kernel_ms=fwd_ms,
+             fwd_kernel_one_call_ms=fwd_one_ms, bwd_kernel_ms=bwd_ms,
+             bwd_kernel_one_call_ms=bwd_one_ms, plain_fwd_ms=plain_fwd_ms,
+             plain_bwd_ms=plain_bwd_ms, reference_bwd_ms=reference_bwd_ms,
+             fwd_bytes=nbytes["fwd"], bwd_bytes=nbytes["bwd"],
+             fwd_bound_us=fwd_bound * 1e3, bwd_bound_us=bwd_bound * 1e3,
+             bound_by=fwd_by if fwd_by == bwd_by else f"{fwd_by}/{bwd_by}")
+        out[cam] = dict(max_abs_err=0.0, ms=fwd_us / 1e3,
+                        plain_ms=plain_fwd_ms, bound_ms=fwd_bound,
+                        bound_by=fwd_by, library_ms=None,
+                        bwd=dict(max_col_err=col_err, ms=bwd_us / 1e3,
+                                 plain_ms=plain_bwd_ms, bound_ms=bwd_bound,
+                                 bound_by=bwd_by))
+    return out
+
+
 def phase_k1_bwd(dev):
     """K1ᵇ at the three (BH, S, D) of the big bs2 train step, fed K1's
     row statistic, against its plain version and beside the backward of
@@ -1652,6 +1798,7 @@ def phase_train(dev):
     from lgm_tpu_torch.models.unet import MVAttention
     from lgm_tpu_torch.ops import mha as mha_mod
     from lgm_tpu_torch.ops.gsplat import flatsort as fs
+    from lgm_tpu_torch.ops.gsplat import projection as pj
 
     # bs2 fits the 80 GB card without U-Net recompute (the preset's
     # unet_remat was a 16 GB-TPU necessity); LPIPS and bf16 as trained.
@@ -1666,7 +1813,7 @@ def phase_train(dev):
 
     captured = {}
     counters = (mha_mod.mha_fwd, mha_mod.mha_bwd, fs.composite_fwd,
-                fs.composite_bwd)
+                fs.composite_bwd, pj.project_fwd, pj.project_bwd)
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1681,14 +1828,17 @@ def phase_train(dev):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
     # Per step: K1 and K1ᵇ at every attention site (16), K2 (with its
     # state) and K2ᵇ on every supervision view (16); per batch: K2 on those
-    # views' ground truth at 512² and on the input views at 256² (24).
+    # views' ground truth at 512² and on the input views at 256² (24). The
+    # projection kernels once a view wherever K2 and K2ᵇ run.
     sites = sum(isinstance(m, MVAttention) for m in state.model.modules())
     views = opt.batch_size * opt.num_views
     inputs = (opt.batch_size * opt.num_input_views
               if opt.input_size != opt.output_size else 0)
     expected = {"mha_fwd": sites * N_STEPS, "mha_bwd": sites * N_STEPS,
                 "composite_fwd": (2 * views + inputs) * N_STEPS,
-                "composite_bwd": views * N_STEPS}
+                "composite_bwd": views * N_STEPS,
+                "project_fwd": (2 * views + inputs) * N_STEPS,
+                "project_bwd": views * N_STEPS}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     warm = median(step_s[1:])
@@ -4149,6 +4299,7 @@ def main() -> int:
     ptxas = phase_build()
     k1 = phase_k1(dev)
     k2 = phase_k2(dev, ptxas)
+    projection = phase_projection(dev)
     k1b = phase_k1_bwd(dev)
     vp_fwd, vp_bwd = phase_vp_kernels(dev)
     k1f, k1bf, k1f_split = phase_k1_f32(dev, ptxas)
@@ -4275,6 +4426,23 @@ def main() -> int:
              infer_launches=fp32_launches["infer"]["mha_split_tf32"],
              train_bs8_launches=fp32_launches["train_bs8"]["mha_split_tf32"],
              **{k: k1f_split[k] for k in keys}),
+        # The projection kernels (no TPU kernel of their own: lgm_tpu fuses
+        # project_gaussians under jit): the forward's numbers on the bench
+        # view (R = 10), the backward's on the train camera (R = 9).
+        dict(name="project_fwd", route="cuda",
+             source="lgm_tpu_torch/ops/gsplat/csrc/project_fwd.cu",
+             replaces="lgm_tpu/ops/gsplat/projection.py::project_gaussians "
+                      "(fused by XLA; no TPU kernel of its own)",
+             launches=launches["project_fwd"],
+             **{k: projection["bench"][k] for k in keys}),
+        dict(name="project_bwd", route="cuda",
+             source="lgm_tpu_torch/ops/gsplat/csrc/project_bwd.cu",
+             replaces="the VJP of lgm_tpu/ops/gsplat/projection.py::"
+                      "project_gaussians (no TPU kernel of its own)",
+             launches=launches["project_bwd"], library_ms=None,
+             max_abs_err=projection["train"]["bwd"]["max_col_err"],
+             **{k: projection["train"]["bwd"][k] for k in
+                ("ms", "plain_ms", "bound_ms", "bound_by")}),
     ]
     # The pallas_v1 training path's own counts of the kernels it shares
     # with the other two paths.

@@ -2,7 +2,10 @@
 
 Port of ``lgm_tpu/ops/gsplat/flatsort.py``. Per view:
 
-1. ``project_gaussians`` (plain PyTorch, SoA).
+1. ``project`` (``projection.py``): one launch of ``csrc/project_fwd.cu``
+   on a CUDA tensor, the depth row among the slot rows where asked, and
+   one of ``csrc/project_bwd.cu`` on the way back; ``project_gaussians``
+   (plain PyTorch, SoA) on a CPU tensor.
 2. ``_flat_binning`` on the projection without gradient (as lgm_tpu's
    ``stop_gradient``): each active splat enumerates 2*dup candidate tiles
    over its exact ellipse AABB, drops provably-zero (splat, tile) pairs by
@@ -53,7 +56,7 @@ from lgm_tpu_torch.ops.gsplat.projection import (
     ALPHA_MAX,
     ALPHA_MIN,
     log_alpha_min,
-    project_gaussians,
+    project,
 )
 
 # Slots per compositing chunk (the TPU's lane width; the kernel's staging
@@ -228,16 +231,13 @@ def _prepare_view(gaussians, view, image_size, tan_half_fov,
     MPT = _mpt(max_per_tile)
 
     with trace.span("render.project"):
-        proj = project_gaussians(gaussians, view, S, tan_half_fov,
-                                 scale_modifier)
+        proj = project(gaussians, view, S, tan_half_fov, scale_modifier,
+                       with_depth)
     with trace.span("render.bin"), torch.no_grad():
         meta = _flat_binning(proj, tiles_y, tiles_x, tile_h, tile_w, dup,
                              max_per_tile)
     with trace.span("render.gather"):
-        attrs_t = proj.attrs_t
-        if with_depth:
-            attrs_t = torch.cat([attrs_t, proj.depth[None]], dim=0)
-        attrs = _PermuteRows.apply(attrs_t.T, meta.order, meta.rank)
+        attrs = _PermuteRows.apply(proj.attrs_t.T, meta.order, meta.rank)
         attrs = torch.cat([attrs, torch.zeros_like(attrs[:1])], dim=0)
         params = _GatherRows.apply(attrs, meta.flat_rank)
         return params.reshape(T, MPT, attrs.shape[1]), meta.counts

@@ -3,7 +3,9 @@
 Port of ``lgm_tpu/ops/gsplat/tiled.py``, the backend ``render_views``
 names ``"pallas_v1"``. Per view:
 
-1. ``project_gaussians`` and one stable depth ``argsort`` (plain PyTorch).
+1. ``project`` (``projection.py``: the projection kernels on a CUDA
+   tensor, ``project_gaussians`` on a CPU tensor) and one stable depth
+   ``argsort``.
 2. ``_bin_tiles`` without gradient (as lgm_tpu's ``stop_gradient``): each
    tile keeps, in depth order, the first ``max_per_tile`` splats whose
    scalar 3σ box (``radius`` on both axes, not flatsort's per-axis
@@ -48,7 +50,7 @@ from lgm_tpu_torch.ops.gsplat.flatsort import (_GatherRows, _PermuteRows,
                                                 _tile_bboxes_xy, launch_shape,
                                                 stack_views)
 from lgm_tpu_torch.ops.gsplat.projection import (ALPHA_MAX, ALPHA_MIN,
-                                                  project_gaussians)
+                                                  project)
 
 # Slots per compositing chunk (the TPU's lane width; the kernels' staging
 # unit), the transmittance early-out threshold, the packed matrix's rows,
@@ -502,8 +504,7 @@ def _prepare_view(gaussians, view, image_size, tan_half_fov, scale_modifier,
                          f"got {max_per_tile}")
     tiles_y, tiles_x = S // tile_h, S // tile_w
 
-    proj = project_gaussians(gaussians, view, S, tan_half_fov,
-                             scale_modifier)
+    proj = project(gaussians, view, S, tan_half_fov, scale_modifier)
     with torch.no_grad():
         active = proj.valid & (proj.radius > 0)
         order = torch.argsort(

@@ -16,9 +16,11 @@ from lgm_tpu.ops.gsplat.reference import render_reference as jax_reference
 from lgm_tpu.utils import camera as jcamera
 from lgm_tpu_torch.ops.gsplat import flatsort as fs
 from lgm_tpu_torch.ops.gsplat.api import render_views
+from lgm_tpu_torch.ops.gsplat import projection as pj
 from lgm_tpu_torch.ops.gsplat.projection import project_gaussians
 from lgm_tpu_torch.ops.gsplat.reference import render_reference
 from lgm_tpu_torch.utils import camera
+from projection_cases import CASES, SIZE, case
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FOVY = 49.1
@@ -482,3 +484,159 @@ def test_launch_shape_gives_whole_warps(P):
             assert (cs, ppt) == variant
     with pytest.raises(ValueError):
         fs.launch_shape(P, (8, 2))
+
+
+# ---------------------------------------------------------------------------
+# The projection's VJP (the backward kernel's plain version) and the
+# wrapper the renderers call
+# ---------------------------------------------------------------------------
+
+# Max abs error of each gradient column within this share of the column's
+# largest |value|: f64 sums in other orders, and f32 round-off (the cases
+# read at most 2e-6 in f32, 6e-16 in f64).
+VJP_COL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _case(name, dtype=torch.float32):
+    g, view, mod = case(name, {torch.float32: np.float32,
+                               torch.float64: np.float64}[dtype])
+    return torch.as_tensor(g), torch.as_tensor(view), mod
+
+
+def _cotangents(R, N, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(R, N, generator=gen, dtype=dtype),
+            torch.randn(N, generator=gen, dtype=dtype))
+
+
+def _assert_columns_close(ours, ref, tol):
+    scale = ref.abs().amax(dim=0)
+    err = (ours - ref).abs().amax(dim=0)
+    assert torch.all(err <= tol * scale), (err / scale).max().item()
+
+
+def _reaches_its_branch(name, g, view, mod):
+    """The case's scene reaches the branch it is named for."""
+    p = pj._intermediates(g, view, SIZE, TAN, mod)
+    if name == "behind":
+        assert (~p["front"]).sum() >= 90
+    elif name == "clamps":
+        lim = p["lim"]
+        xr = p["xr"]
+        assert (xr > lim).any() and (xr < -lim).any()
+        assert ((xr == lim) | (xr == -lim)).sum() == 2
+        assert ((p["yr"] == lim) | (p["yr"] == -lim)).sum() == 2
+    elif name == "det":
+        assert (p["det"] <= 0).any()
+    elif name == "faint":
+        assert (g[:, 3] < pj.ALPHA_MIN).sum() >= 90
+    elif name == "unnormalised":
+        norm = g[:, 7:11].norm(dim=1)
+        assert (norm < 0.9).any() and (norm > 1.1).any()
+    elif name == "scale_modifier":
+        assert mod != 1.0
+
+
+@pytest.mark.parametrize("with_depth", [False, True])
+@pytest.mark.parametrize("name", CASES)
+def test_project_bwd_reference_is_autograd_of_plain(name, with_depth):
+    """``project_gaussians_bwd_reference`` (the backward kernel's plain
+    version) against autograd of ``project_gaussians`` for seeded
+    cotangents of the slot rows and of ``depth``, in f64 and f32, on a
+    scene that reaches the case's branch: behind the near plane, past both
+    frustum clamps and exactly on their limits, det <= 0, opacity below
+    ALPHA_MIN, an un-normalised quaternion, scale_modifier != 1."""
+    for dtype in (torch.float64, torch.float32):
+        g, view, mod = _case(name, dtype)
+        _reaches_its_branch(name, g, view, mod)
+        gl = g.clone().requires_grad_()
+        p = project_gaussians(gl, view, SIZE, TAN, mod, with_depth)
+        g_attrs, g_depth = _cotangents(p.attrs_t.shape[0], len(g), dtype)
+        ((p.attrs_t * g_attrs).sum() + (p.depth * g_depth).sum()).backward()
+        ours = pj.project_gaussians_bwd_reference(
+            g, view, SIZE, TAN, mod, g_attrs, g_depth)
+        _assert_columns_close(ours, gl.grad, VJP_COL_TOL[dtype])
+        # Without the depth output's cotangent, and with none at all.
+        gl.grad = None
+        p = project_gaussians(gl, view, SIZE, TAN, mod, with_depth)
+        (p.attrs_t * g_attrs).sum().backward()
+        ours = pj.project_gaussians_bwd_reference(g, view, SIZE, TAN, mod,
+                                                  g_attrs)
+        _assert_columns_close(ours, gl.grad, VJP_COL_TOL[dtype])
+        assert torch.all(pj.project_gaussians_bwd_reference(
+            g, view, SIZE, TAN, mod) == 0)
+
+
+@pytest.mark.parametrize("with_depth", [False, True])
+def test_project_on_the_cpu_is_project_gaussians(with_depth):
+    """The renderers' wrapper on a CPU tensor is ``project_gaussians`` bit
+    for bit, forward and gradient, and counts no launch, also in a
+    profiled run (``lgm_tpu_torch.trace``)."""
+    from lgm_tpu_torch import trace
+
+    g, view, _ = _case("orbit")
+    launches = pj.project_fwd.launches, pj.project_bwd.launches
+    trace.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        grads = []
+        for fn in (pj.project, project_gaussians):
+            gl = g.clone().requires_grad_()
+            p = fn(gl, view, SIZE, TAN, 0.9, with_depth)
+            (p.attrs_t.sum() + p.depth.sum()).backward()
+            grads.append(gl.grad)
+            if fn is pj.project:
+                ours = p
+        ref = project_gaussians(g, view, SIZE, TAN, 0.9, with_depth)
+    for field in pj.Projected._fields:
+        assert torch.equal(getattr(ours, field), getattr(ref, field)), field
+    assert ours.attrs_t.shape[0] == (10 if with_depth else 9)
+    assert torch.equal(grads[0], grads[1])
+    assert (pj.project_fwd.launches, pj.project_bwd.launches) == launches
+    assert not any(k.startswith("project_") for k in trace.counters())
+    trace.reset()
+
+
+@pytest.mark.parametrize("with_depth", [False, True])
+def test_project_function_routes_the_cotangents(with_depth, monkeypatch):
+    """The autograd Function that the kernels run under, with the plain
+    versions put in their place: the slot rows' cotangent reaches the
+    backward transposed, as flatsort's permute hands it back, with the
+    depth output's, and the gradient is autograd's of the plain chain;
+    mean2d, conic, the radii and valid carry no gradient."""
+    calls = []
+
+    def fwd(*args):
+        calls.append("fwd")
+        return project_gaussians(*args)
+
+    def bwd(g, view, S, tan, mod, g_attrs=None, g_depth=None):
+        calls.append("bwd")
+        assert g_attrs.stride() == (1, g_attrs.shape[0])
+        return pj.project_gaussians_bwd_reference(g, view, S, tan, mod,
+                                                  g_attrs, g_depth)
+
+    monkeypatch.setattr(pj, "project_fwd", fwd)
+    monkeypatch.setattr(pj, "project_bwd", bwd)
+    g, view, mod = _case("clamps")
+    N = len(g)
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(1))
+    inv = torch.argsort(perm)
+    w = torch.randn(N, 10 if with_depth else 9,
+                    generator=torch.Generator().manual_seed(2))
+    grads = []
+    for run in ("function", "plain"):
+        gl = g.clone().requires_grad_()
+        if run == "function":
+            out = pj._Project.apply(gl, view, SIZE, TAN, mod, with_depth)
+            mean2d, conic, depth, radius, valid, rx, ry, attrs_t = out
+            assert not any(x.requires_grad for x in (mean2d, conic, radius,
+                                                     valid, rx, ry))
+        else:
+            p = project_gaussians(gl, view, SIZE, TAN, mod, with_depth)
+            depth, attrs_t = p.depth, p.attrs_t
+        rows = fs._PermuteRows.apply(attrs_t.T, perm, inv)
+        ((rows * w[perm]).sum() + depth.sum()).backward()
+        grads.append(gl.grad)
+    assert calls == ["fwd", "bwd"]
+    _assert_columns_close(grads[0], grads[1], VJP_COL_TOL[torch.float32])

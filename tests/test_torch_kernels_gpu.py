@@ -14,12 +14,14 @@ import pytest
 import torch
 
 from lgm_tpu_torch.ops.gsplat import flatsort as fs
+from lgm_tpu_torch.ops.gsplat import projection as pj
 from lgm_tpu_torch.ops.gsplat import tiled as tt
 from lgm_tpu_torch.ops.mha import (mha, mha_bwd, mha_bwd_f32,
                                    mha_bwd_reference, mha_fwd, mha_fwd_f32,
                                    mha_reference, mha_split_tf32,
                                    split_tf32_reference)
 from lgm_tpu_torch.utils import camera
+from projection_cases import CASES, SIZE, case
 
 pytestmark = pytest.mark.gpu
 
@@ -1556,3 +1558,213 @@ def test_mha_f32_kernels_refuse_what_they_do_not_take(cuda):
     z = f.clone().requires_grad_()
     with pytest.raises(NotImplementedError):
         mha_fwd(z, z, z, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# The projection kernels (csrc/project_fwd.cu, project_bwd.cu): the forward
+# gives project_gaussians's bits; the backward is the closed-form VJP
+# ---------------------------------------------------------------------------
+
+# Max abs error of each gradient column within this share of the column's
+# largest |value|: f32 sums in other orders and contracted into fmas
+# (project_gaussians_bwd_reference reads at most 2e-6 against autograd on
+# the CPU).
+PROJECT_BWD_COL_TOL = 2.0 ** -15
+
+
+def _projection_scene(cuda, cam):
+    """65,536 splats of ``sample_scene`` at 512² through a camera of the
+    train cell (a supervision view of ``sample_poses``) or of the orbit."""
+    from lgm_tpu_torch.config import CONFIGS
+    from lgm_tpu_torch.data.synthetic import sample_poses, sample_scene
+    from lgm_tpu_torch.infer import orbit_video_cameras
+
+    opt = CONFIGS["big"]
+    rng = np.random.default_rng(21)
+    g = sample_scene(rng, 65536)
+    if cam == "train":
+        views = camera.build_camera_inputs(sample_poses(rng, opt), opt.fovy,
+                                           opt.znear, opt.zfar)["cam_view"]
+        view = views[opt.num_input_views + 1]
+    else:
+        view = orbit_video_cameras(opt, 180)["cam_view"][37]
+    tan = float(np.tan(0.5 * np.deg2rad(opt.fovy)))
+    return (torch.as_tensor(g, device=cuda),
+            torch.as_tensor(view, dtype=torch.float32, device=cuda),
+            opt.output_size, tan)
+
+
+def _assert_projected_equal(ours, ref):
+    for field in pj.Projected._fields:
+        a, b = getattr(ours, field), getattr(ref, field)
+        assert not (b.is_floating_point() and b.isnan().any()), field
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        assert torch.equal(a, b), (
+            field, int((a != b).sum()),
+            float((a.double() - b.double()).abs().max()))
+
+
+@pytest.mark.parametrize("with_depth", [False, True])
+@pytest.mark.parametrize("cam", ["train", "orbit"])
+def test_project_fwd_kernel_is_plain_bit_for_bit(cuda, cam, with_depth):
+    """The forward kernel gives every field of ``project_gaussians`` bit
+    for bit on the train cell's scene shape, and the binning gives the
+    same FlatBins from either."""
+    g, view, S, tan = _projection_scene(cuda, cam)
+    before = pj.project_fwd.launches
+    with torch.no_grad():
+        ours = pj.project_fwd(g, view, S, tan, 1.0, with_depth)
+        ref = pj.project_gaussians(g, view, S, tan, 1.0, with_depth)
+        torch.cuda.synchronize()
+        assert pj.project_fwd.launches == before + 1
+        _assert_projected_equal(ours, ref)
+        assert int(ref.valid.sum()) > 10000
+        tiles = S // 32
+        for a, b in zip(fs._flat_binning(ours, tiles, tiles, 32, 32, 16),
+                        fs._flat_binning(ref, tiles, tiles, 32, 32, 16)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_project_fwd_kernel_is_plain_on_every_branch(cuda, name):
+    """Bit for bit on the scenes that reach each branch: behind the near
+    plane, past and on the frustum clamps, det <= 0, opacity below
+    ALPHA_MIN, un-normalised quaternions, scale_modifier != 1."""
+    g, view, mod = case(name)
+    g, view = torch.as_tensor(g, device=cuda), torch.as_tensor(view,
+                                                               device=cuda)
+    for with_depth in (False, True):
+        with torch.no_grad():
+            _assert_projected_equal(
+                pj.project_fwd(g, view, SIZE, TAN, mod, with_depth),
+                pj.project_gaussians(g, view, SIZE, TAN, mod,
+                                     with_depth))
+
+
+def _project_grads(g, view, mod, with_depth, seed=0):
+    """(kernel, plain VJP, autograd of the plain chain) for seeded
+    cotangents of the slot rows, handed back transposed as flatsort's
+    permute does, and of the depth output."""
+    N, R = g.shape[0], 10 if with_depth else 9
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    g_attrs = torch.randn(N, R, generator=gen, device=g.device).T
+    g_depth = torch.randn(N, generator=gen, device=g.device)
+    ours = pj.project_bwd(g, view, SIZE, TAN, mod, g_attrs, g_depth)
+    ref = pj.project_gaussians_bwd_reference(g, view, SIZE, TAN, mod,
+                                             g_attrs, g_depth)
+    gl = g.clone().requires_grad_()
+    p = pj.project_gaussians(gl, view, SIZE, TAN, mod, with_depth)
+    ((p.attrs_t * g_attrs).sum() + (p.depth * g_depth).sum()).backward()
+    return ours, ref, gl.grad
+
+
+def _columns_close(ours, ref, tol=PROJECT_BWD_COL_TOL):
+    scale = ref.abs().amax(dim=0)
+    err = (ours - ref).abs().amax(dim=0)
+    assert torch.all(err <= tol * scale), (err / scale).tolist()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_project_bwd_kernel_matches_plain(cuda, name):
+    """The backward kernel against ``project_gaussians_bwd_reference`` and
+    autograd of the plain chain on the card, with and without the depth
+    row, on the scenes that reach each branch; without the depth output's
+    cotangent and with no cotangent at all."""
+    g, view, mod = case(name)
+    g, view = torch.as_tensor(g, device=cuda), torch.as_tensor(view,
+                                                               device=cuda)
+    for with_depth in (False, True):
+        before = pj.project_bwd.launches
+        ours, ref, auto = _project_grads(g, view, mod, with_depth)
+        torch.cuda.synchronize()
+        assert pj.project_bwd.launches == before + 1
+        assert torch.isfinite(ours).all()
+        _columns_close(ours, ref)
+        _columns_close(ours, auto)
+    g_attrs = torch.randn(9, g.shape[0], device=cuda)
+    _columns_close(
+        pj.project_bwd(g, view, SIZE, TAN, mod, g_attrs),
+        pj.project_gaussians_bwd_reference(g, view, SIZE, TAN, mod,
+                                           g_attrs))
+    assert torch.all(pj.project_bwd(g, view, SIZE, TAN, mod) == 0)
+
+
+def test_project_bwd_kernel_is_deterministic(cuda):
+    """One thread a splat and no atomics: the same bits on every call, at
+    the train cell's scene shape."""
+    g, view, S, tan = _projection_scene(cuda, "train")
+    g_attrs = torch.randn(g.shape[0], 9, device=cuda).T
+    runs = [pj.project_bwd(g, view, S, tan, 1.0, g_attrs) for _ in range(3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    ref = pj.project_gaussians_bwd_reference(g, view, S, tan, 1.0, g_attrs)
+    _columns_close(runs[0], ref)
+
+
+@pytest.mark.parametrize("with_depth", [False, True])
+def test_render_grad_launches_projection_kernels_once_a_view(cuda,
+                                                             with_depth):
+    """A render_views forward and backward on the card launches the
+    forward and the backward projection kernel once a view, and gives the
+    CPU path's gradient."""
+    from lgm_tpu_torch.ops.gsplat.api import render_views
+
+    rng = np.random.default_rng(8)
+    g = torch.as_tensor(_scene(2000, rng)[None], device=cuda)
+    views = torch.as_tensor(np.stack([camera.build_camera_inputs(
+        camera.orbit_camera(10, az, 1.5)[None], FOVY, 0.5, 2.5)["cam_view"][0]
+        for az in (30, 150, 270)])[None], device=cuda)
+    tgt = torch.rand(1, 3, 128, 128, 3, device=cuda)
+
+    def loss(out, tgt):
+        value = ((out["image"] - tgt) ** 2).mean()
+        if with_depth:
+            value = value + out["depth"].mean()
+        return value
+
+    f0, b0 = pj.project_fwd.launches, pj.project_bwd.launches
+    gt = g.clone().requires_grad_()
+    loss(render_views(gt, views, 128, TAN, with_depth=with_depth, dup=32),
+         tgt).backward()
+    torch.cuda.synchronize()
+    assert pj.project_fwd.launches == f0 + 3
+    assert pj.project_bwd.launches == b0 + 3
+    with torch.inference_mode():
+        render_views(g, views, 128, TAN, with_depth=with_depth, dup=32)
+    assert pj.project_fwd.launches == f0 + 6
+    assert pj.project_bwd.launches == b0 + 3
+    gp = g.cpu().requires_grad_()
+    loss(render_views(gp, views.cpu(), 128, TAN, with_depth=with_depth,
+                      dup=32), tgt.cpu()).backward()
+    err = (gt.grad.cpu() - gp.grad).abs().max().item()
+    assert err <= 1e-3 * gp.grad.abs().max().item(), err
+
+
+def test_project_kernels_refuse_what_they_do_not_take(cuda):
+    g, view, mod = case("orbit")
+    g, view = torch.as_tensor(g, device=cuda), torch.as_tensor(view,
+                                                               device=cuda)
+    args = (SIZE, TAN, mod)
+    wide = torch.zeros(len(g), 28, device=cuda)
+    wide[:, ::2] = g
+    bad_inputs = [(g.double(), view), (wide[:, ::2], view),
+                  (g[:, :13].contiguous(), view), (g, view.double()),
+                  (g, view[:3].contiguous()), (g, view.T), (g.cpu(), view)]
+    for gg, vv in bad_inputs:
+        with pytest.raises(ValueError):
+            pj.project_fwd(gg, vv, *args)
+        with pytest.raises(ValueError):
+            pj.project_bwd(gg, vv, *args)
+    g_attrs = torch.zeros(9, len(g), device=cuda)
+    for bad in (g_attrs[:8], g_attrs.double(), g_attrs.cpu(),
+                torch.zeros(11, len(g), device=cuda)):
+        with pytest.raises(ValueError):
+            pj.project_bwd(g, view, *args, g_attrs=bad)
+    for bad in (torch.zeros(len(g) + 1, device=cuda),
+                torch.zeros(len(g), 2, device=cuda)[:, 0]):
+        with pytest.raises(ValueError):
+            pj.project_bwd(g, view, *args, g_depth=bad)
+    view_grad = view.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        pj.project(g.clone().requires_grad_(), view_grad, *args)
+    with pytest.raises(NotImplementedError):
+        pj.project_fwd(g, view_grad, *args)

@@ -82,7 +82,8 @@ def test_kernel_sources_are_found_and_build_needs_nvcc(tmp_path,
     srcs = _build.sources()
     assert set(srcs) == {"mha_fwd_wgmma", "mha_bwd_wgmma", "mha_fwd_f32",
                          "mha_bwd_f32", "mha_split_tf32", "composite_fwd",
-                         "composite_bwd", "tiled_fwd", "tiled_bwd"}
+                         "composite_bwd", "tiled_fwd", "tiled_bwd",
+                         "project_fwd", "project_bwd"}
     assert all(p.suffix == ".cu" and p.parent.name == "csrc"
                for p in srcs.values())
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
