@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.diffusion.clip import CLIPTextModel, CLIPVisionModel
 from lgm_tpu_torch.diffusion.ddim import DDIMScheduler
 from lgm_tpu_torch.diffusion.mv_unet import (MultiViewUNetModel, get_camera,
@@ -207,12 +208,15 @@ class MVDreamPipeline:
         return mods
 
     def load_state_dicts(self, sds) -> None:
-        """Strict load of ``{component: state dict}`` (numpy arrays or
-        tensors); components absent from ``sds`` keep their weights."""
+        """Strict load of ``{component: state dict}``; components absent
+        from ``sds`` keep their weights. Tensors are copied in as they are,
+        from any device; anything else (numpy arrays) goes through
+        ``torch.as_tensor``."""
         for name, module in self.modules().items():
             if name in sds:
                 module.load_state_dict(
-                    {k: torch.as_tensor(np.asarray(v, np.float32))
+                    {k: v if isinstance(v, torch.Tensor)
+                     else torch.as_tensor(np.asarray(v, np.float32))
                      for k, v in sds[name].items()}, strict=True)
 
     # ------------------------------------------------------------------
@@ -320,39 +324,43 @@ class MVDreamPipeline:
                 "available: the checkpoint directory has no tokenizer/ "
                 "with the CLIP BPE vocab, and the hashing stand-in would "
                 "give garbage conditioning with real weights")
-        return tuple(self.text_encoder(torch.as_tensor(
-            self.tokenizer(text), device=self.device))
-            for text in (negative_prompt, prompt))
+        with trace.span("diffusion.encode_prompt"):
+            return tuple(self.text_encoder(torch.as_tensor(
+                self.tokenizer(text), device=self.device))
+                for text in (negative_prompt, prompt))
 
     @torch.inference_mode()
     def encode_image(self, image: np.ndarray):
         """(zeros, CLIP vision penultimate features) for the ip branch,
         each f32 [1, tokens, vision_hidden] (ref: pipeline_mvdream.py:
         402-413). image: [H, W, 3] in [0, 1]."""
-        s = self.cfg.image_size
-        img = (resize(image, (s, s), "cubic") - CLIP_IMAGE_MEAN) \
-            / CLIP_IMAGE_STD
-        pixels = torch.as_tensor(img.transpose(2, 0, 1)[None],
-                                 dtype=torch.float32, device=self.device)
-        feats = self.image_encoder(pixels)
-        return torch.zeros_like(feats), feats
+        with trace.span("diffusion.encode_image"):
+            s = self.cfg.image_size
+            img = (resize(image, (s, s), "cubic") - CLIP_IMAGE_MEAN) \
+                / CLIP_IMAGE_STD
+            pixels = torch.as_tensor(img.transpose(2, 0, 1)[None],
+                                     dtype=torch.float32, device=self.device)
+            feats = self.image_encoder(pixels)
+            return torch.zeros_like(feats), feats
 
     @torch.inference_mode()
     def encode_image_latents(self, image: np.ndarray, size: int = 256):
         """(zeros, the VAE posterior mean of the image x 0.18215), each f32
         [1, 4, size/f, size/f] (ref: pipeline_mvdream.py:415-429)."""
-        img = 2.0 * resize(image, (size, size), "linear") - 1.0
-        x = torch.as_tensor(img.transpose(2, 0, 1)[None],
-                            dtype=torch.float32, device=self.device)
-        lat = self.vae.encode(x)[0] * SCALING_FACTOR
-        return torch.zeros_like(lat), lat
+        with trace.span("diffusion.encode_latents"):
+            img = 2.0 * resize(image, (size, size), "linear") - 1.0
+            x = torch.as_tensor(img.transpose(2, 0, 1)[None],
+                                dtype=torch.float32, device=self.device)
+            lat = self.vae.encode(x)[0] * SCALING_FACTOR
+            return torch.zeros_like(lat), lat
 
     @torch.inference_mode()
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents [F, 4, h, w] on the device -> images [F, 3, H, W] in
         [0, 1], f32."""
-        img = self.vae.decode(latents.float() / SCALING_FACTOR).float()
-        return (img / 2 + 0.5).clamp(0.0, 1.0)
+        with trace.span("diffusion.decode"):
+            img = self.vae.decode(latents.float() / SCALING_FACTOR).float()
+            return (img / 2 + 0.5).clamp(0.0, 1.0)
 
     def decode_latents(self, latents) -> np.ndarray:
         """NHWC latents [F, h, w, 4] -> images [F, H, W, 3] in [0, 1]."""
@@ -371,29 +379,35 @@ class MVDreamPipeline:
                 ip_img=None) -> torch.Tensor:
         """The DDIM loop (deterministic, eta 0) from latents [F, 4, h, w]
         f32: one U-Net call a step on the CFG pair (uncond first) when
-        ``guidance_scale`` > 1, then the epsilon update."""
-        sch = self.scheduler
-        sch.set_timesteps(num_inference_steps)
-        steps, a_t, a_prev = (torch.as_tensor(a, device=self.device)
-                              for a in sch.step_arrays())
-        ts = steps.float()
-        cfg_on = guidance_scale > 1.0
-        mult = 2 if cfg_on else 1
-        if sch.prediction_type != "epsilon":
-            raise ValueError(sch.prediction_type)
-        lat = latents
-        for i in range(len(ts)):
-            lmi = torch.cat([lat] * mult) if cfg_on else lat
-            tvec = ts[i].expand(num_frames * mult)
-            eps = self.unet(lmi, tvec, ctx, num_frames, camera=cam, ip=ip,
-                            ip_img=ip_img)
-            if cfg_on:
-                uncond, cond = eps[:num_frames], eps[num_frames:]
-                eps = uncond + guidance_scale * (cond - uncond)
-            at, ap = a_t[i], a_prev[i]
-            x0 = (lat - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
-            lat = torch.sqrt(ap) * x0 + torch.sqrt(1.0 - ap) * eps
-        return lat
+        ``guidance_scale`` > 1, then the epsilon update. A profiled run
+        reads the loop from the range ``diffusion.denoise``, each step
+        from ``diffusion.step`` and their number from the counter
+        ``diffusion.steps``."""
+        with trace.span("diffusion.denoise"):
+            sch = self.scheduler
+            sch.set_timesteps(num_inference_steps)
+            steps, a_t, a_prev = (torch.as_tensor(a, device=self.device)
+                                  for a in sch.step_arrays())
+            ts = steps.float()
+            cfg_on = guidance_scale > 1.0
+            mult = 2 if cfg_on else 1
+            if sch.prediction_type != "epsilon":
+                raise ValueError(sch.prediction_type)
+            lat = latents
+            for i in range(len(ts)):
+                with trace.span("diffusion.step"):
+                    trace.add("diffusion.steps", 1)
+                    lmi = torch.cat([lat] * mult) if cfg_on else lat
+                    tvec = ts[i].expand(num_frames * mult)
+                    eps = self.unet(lmi, tvec, ctx, num_frames, camera=cam,
+                                    ip=ip, ip_img=ip_img)
+                    if cfg_on:
+                        uncond, cond = eps[:num_frames], eps[num_frames:]
+                        eps = uncond + guidance_scale * (cond - uncond)
+                    at, ap = a_t[i], a_prev[i]
+                    x0 = (lat - torch.sqrt(1.0 - at) * eps) / torch.sqrt(at)
+                    lat = torch.sqrt(ap) * x0 + torch.sqrt(1.0 - ap) * eps
+            return lat
 
     def __call__(self, prompt: str = "", image: Optional[np.ndarray] = None,
                  height: int = 256, width: int = 256, elevation: float = 0.0,

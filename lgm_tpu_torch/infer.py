@@ -101,18 +101,21 @@ def image_to_views(pipe, image: np.ndarray, opt: Options,
     give it: [H, W, 4] BGRA (recentred on its alpha > 0 and composited
     over white) or [H, W, 3] BGR. ``pipe`` (an image-conditioned
     ``MVDreamPipeline``) makes its views with 30 steps at guidance 5.0;
-    views 1, 2, 3, 0 are resized (linear) to S."""
-    if image.shape[-1] == 4:
-        rgba = image[..., [2, 1, 0, 3]]
-        img = rgba_to_rgb_white(recenter(rgba, rgba[..., 3] > 0,
-                                         border_ratio=0.2))
-    else:
-        img = image[..., [2, 1, 0]]
-    mv = pipe(image=np.ascontiguousarray(img, np.float32), prompt="",
-              elevation=elevation, num_inference_steps=30,
-              guidance_scale=5.0)
-    s = opt.input_size
-    return np.stack([resize(m, (s, s), "linear") for m in mv[[1, 2, 3, 0]]])
+    views 1, 2, 3, 0 are resized (linear) to S. A profiled run reads the
+    whole call from the range ``views``."""
+    with trace.span("views"):
+        if image.shape[-1] == 4:
+            rgba = image[..., [2, 1, 0, 3]]
+            img = rgba_to_rgb_white(recenter(rgba, rgba[..., 3] > 0,
+                                             border_ratio=0.2))
+        else:
+            img = image[..., [2, 1, 0]]
+        mv = pipe(image=np.ascontiguousarray(img, np.float32), prompt="",
+                  elevation=elevation, num_inference_steps=30,
+                  guidance_scale=5.0)
+        s = opt.input_size
+        return np.stack([resize(m, (s, s), "linear")
+                         for m in mv[[1, 2, 3, 0]]])
 
 
 def build_input(mv_images: np.ndarray, opt: Options) -> np.ndarray:

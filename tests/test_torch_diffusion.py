@@ -454,6 +454,27 @@ def test_save_pretrained_round_trip(fmt, tmp_path, monkeypatch):
                                   pipe.tokenizer("an owl statue"))
 
 
+@pytest.mark.parametrize("kind", ["tensor", "numpy"])
+def test_load_state_dicts_takes_tensors_and_arrays(kind):
+    """``load_state_dicts`` takes CPU tensors as they are and numpy arrays
+    through ``torch.as_tensor``: the same weights each way
+    (``tests/test_torch_kernels_gpu.py`` holds CUDA tensors to it)."""
+    src = tpipe.MVDreamPipeline.from_config("tiny-test-ip", seed=1,
+                                            device="cpu")
+    sds = {name: {k: v.detach().clone() for k, v in m.state_dict().items()}
+           for name, m in src.modules().items()}
+    if kind == "numpy":
+        sds = {name: {k: v.numpy() for k, v in sd.items()}
+               for name, sd in sds.items()}
+    dst = tpipe.MVDreamPipeline.from_config("tiny-test-ip", seed=2,
+                                            device="cpu")
+    dst.load_state_dicts(sds)
+    for name, module in dst.modules().items():
+        want = src.modules()[name].state_dict()
+        for k, v in module.state_dict().items():
+            assert torch.equal(v, want[k]), (name, k)
+
+
 def test_prompt_needs_a_real_tokenizer():
     """Without a tokenizer/ directory a published-size config refuses to
     encode a prompt (the hashing stand-in is for the tiny configs)."""

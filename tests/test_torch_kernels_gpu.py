@@ -1768,3 +1768,20 @@ def test_project_kernels_refuse_what_they_do_not_take(cuda):
         pj.project(g.clone().requires_grad_(), view_grad, *args)
     with pytest.raises(NotImplementedError):
         pj.project_fwd(g, view_grad, *args)
+
+
+def test_pipeline_loads_cuda_tensors_as_they_are(cuda):
+    """``MVDreamPipeline.load_state_dicts`` takes weights that live on the
+    card (no host round trip), the same weights as from the host."""
+    from lgm_tpu_torch.diffusion.pipeline import MVDreamPipeline
+
+    src = MVDreamPipeline.from_config("tiny-test-ip", seed=1, device="cpu")
+    sds = {name: {k: v.to(cuda) for k, v in m.state_dict().items()}
+           for name, m in src.modules().items()}
+    dst = MVDreamPipeline.from_config("tiny-test-ip", seed=2, device="cuda")
+    dst.load_state_dicts(sds)
+    for name, module in dst.modules().items():
+        want = src.modules()[name].state_dict()
+        for k, v in module.state_dict().items():
+            assert v.device.type == "cuda"
+            assert torch.equal(v.cpu(), want[k]), (name, k)

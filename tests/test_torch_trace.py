@@ -194,3 +194,66 @@ def test_plain_composite_bwd_counts_the_forward_pairs(given_state):
             + 12 * int((visited > 0).sum()))
     assert c["composite_bwd.bytes"] - 4 * T * (1 + MPT * R) == (
         work["slots"] * R * 4 + rows * P * 4)
+
+
+DIFFUSION_RANGES = ("diffusion.encode_prompt", "diffusion.encode_image",
+                    "diffusion.encode_latents", "diffusion.decode",
+                    "diffusion.denoise", "diffusion.step", "views")
+
+
+class _TwoSteps:
+    """A tiny ImageDream pipeline as ``image_to_views`` calls it, at 32²
+    and two DDIM steps (the tiny U-Net would see 256² as 128² latents)."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __call__(self, **kw):
+        return self.pipe(**dict(kw, height=32, width=32,
+                                num_inference_steps=2))
+
+
+@pytest.fixture(scope="module")
+def tiny_image_pipe():
+    from lgm_tpu_torch.diffusion.pipeline import MVDreamPipeline
+
+    pipe = MVDreamPipeline.from_config("tiny-pipe-ip", seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    image = rng.uniform(0, 1, (40, 40, 4)).astype(np.float32)
+    image[..., 3] = 0.0
+    image[8:30, 6:34, 3] = 1.0
+    return _TwoSteps(pipe), image
+
+
+def test_profiled_image_to_views_has_the_diffusion_ranges(tiny_image_pipe):
+    pipe, image = tiny_image_pipe
+    opt = get_config("nano")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        views = infer.image_to_views(pipe, image, opt)
+    assert views.shape == (4, opt.input_size, opt.input_size, 3)
+    ranges = _ranges(prof)
+    n = Counter(name for _, _, name in ranges)
+    assert {k: n[k] for k in DIFFUSION_RANGES} == dict(
+        {k: 1 for k in DIFFUSION_RANGES}, **{"diffusion.step": 2})
+    (lo, hi), = [(s, e) for s, e, m in ranges if m == "views"]
+    (dlo, dhi), = [(s, e) for s, e, m in ranges if m == "diffusion.denoise"]
+    assert all(lo <= s < e <= hi for s, e, m in ranges
+               if m.startswith("diffusion."))
+    assert all(dlo <= s < e <= dhi for s, e, m in ranges
+               if m == "diffusion.step")
+    assert trace.counters() == {"diffusion.steps": 2}
+
+
+def test_untraced_image_to_views_makes_no_range_and_counts_nothing(
+        tiny_image_pipe, monkeypatch):
+    pipe, image = tiny_image_pipe
+    opened = []
+    real = trace._profiler.record_function
+
+    def spy(name, *a, **k):
+        opened.append(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(trace._profiler, "record_function", spy)
+    infer.image_to_views(pipe, image, get_config("nano"))
+    assert opened == [] and trace.counters() == {}
