@@ -16,18 +16,20 @@ Data contract (NHWC at the public functions, as in JAX):
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from lgm_tpu_torch import trace
 from lgm_tpu_torch.config import Options
 from lgm_tpu_torch.models.init import init_like_flax_
-from lgm_tpu_torch.models.lpips import LPIPS
+from lgm_tpu_torch.models.lpips import (LPIPS, GraphedFold, grad_seed,
+                                        value_and_grad)
 from lgm_tpu_torch.models.unet import UNet
 from lgm_tpu_torch.ops.gsplat.api import render_views
 from lgm_tpu_torch.parallel import dist
@@ -163,6 +165,28 @@ def rasterizer_backend(name: str) -> str:
     return backends[name]
 
 
+def _lpips_nchw(lpips: LPIPS, gt: torch.Tensor, pr: torch.Tensor
+                ) -> torch.Tensor:
+    """LPIPS of NCHW pairs: [c] distances."""
+    return lpips(gt.permute(0, 2, 3, 1), pr.permute(0, 2, 3, 1))
+
+
+class _FoldedMean(torch.autograd.Function):
+    """The mean of ``values``, whose gradient to ``pr`` for an upstream
+    gradient of 1 was formed in the forward (``grad``): the backward only
+    scales it."""
+
+    @staticmethod
+    def forward(ctx, pr, values, grad):
+        ctx.save_for_backward(grad)
+        return values.mean()
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grad, = ctx.saved_tensors
+        return grad_out * grad, None, None
+
+
 class LGMWithLoss(nn.Module):
     """Training graph (ref: core/models.py:120-174): Gaussians from
     ``lgm``, every [B, V] supervision view rendered with gradient, the full
@@ -184,28 +208,59 @@ class LGMWithLoss(nn.Module):
         self.lgm = LGM(opt, dtype, generator)
         self.lpips_loss = (LPIPS(dtype=dtype, generator=generator)
                            if opt.lambda_lpips > 0 else None)
+        # LPIPS's captured folds by chunk shape and mean's count, all in
+        # one memory pool, and the addresses of the LPIPS tensors they read.
+        self._lpips_graphs: Dict[tuple, GraphedFold] = {}
+        self._lpips_at: tuple = ()
 
-    def _lpips_chunk(self, gt: torch.Tensor, pr: torch.Tensor):
-        return self.lpips_loss(gt.permute(0, 2, 3, 1), pr.permute(0, 2, 3, 1))
+    def _lpips_graph(self, gt: torch.Tensor, pr: torch.Tensor,
+                     n: int) -> GraphedFold:
+        """The captured fold of chunks shaped as ``gt`` and ``pr`` of a
+        mean over ``n``, captured on its key's first call into the memory
+        pool of the folds before it; all are dropped once LPIPS's tensors
+        lie elsewhere (replaced, not updated in place)."""
+        at = tuple(t.data_ptr() for t in itertools.chain(
+            self.lpips_loss.parameters(), self.lpips_loss.buffers()))
+        if at != self._lpips_at:
+            self._lpips_graphs.clear()
+            self._lpips_at = at
+        key = (tuple(pr.shape), pr.dtype, pr.device, n)
+        graph = self._lpips_graphs.get(key)
+        if graph is None:
+            pool = next((g.pool() for g in self._lpips_graphs.values()), None)
+            graph = self._lpips_graphs[key] = GraphedFold(
+                functools.partial(_lpips_nchw, self.lpips_loss), gt, pr, n,
+                pool)
+        return graph
 
     def _lpips(self, pred_images, gt_images) -> torch.Tensor:
         """Mean LPIPS over the B*V pairs, NCHW in [-1, 1] at <= 256², in
-        chunks of 4 pairs; one chunk's VGG activations are live at a time,
-        each chunk recomputed in the backward (lgm_tpu's nn.scan +
-        remat)."""
+        chunks of 4 pairs; one chunk's VGG activations are live at a time
+        (lgm_tpu's nn.scan + remat). Where the prediction needs a
+        gradient, each chunk's gradient of the mean is formed in the
+        forward while its activations are live (``value_and_grad``, on
+        CUDA one replay of its ``GraphedFold``), and the
+        backward scales it."""
         pr = _resize_nchw_256(_to_nchw(pred_images) * 2 - 1).to(self.dtype)
         gt = _resize_nchw_256(_to_nchw(gt_images) * 2 - 1).to(self.dtype)
         n = pr.shape[0]
         chunk = next(c for c in (4, 2, 1) if n % c == 0)
-        vals = []
+        fn = functools.partial(_lpips_nchw, self.lpips_loss)
+        if not pr.requires_grad:
+            return torch.cat([fn(gt[i:i + chunk], pr[i:i + chunk])
+                              for i in range(0, n, chunk)]).mean()
+        prd = pr.detach()
+        if pr.is_cuda:
+            fold = self._lpips_graph(gt[:chunk], prd[:chunk], n)
+        else:
+            fold = functools.partial(value_and_grad, fn,
+                                     seed=grad_seed(chunk, n, pr.device))
+        values = torch.empty(n, dtype=torch.float32, device=pr.device)
+        grad = torch.empty_like(prd)
         for i in range(0, n, chunk):
-            args = (gt[i:i + chunk], pr[i:i + chunk])
-            if torch.is_grad_enabled():
-                vals.append(checkpoint(self._lpips_chunk, *args,
-                                       use_reentrant=False))
-            else:
-                vals.append(self._lpips_chunk(*args))
-        return torch.cat(vals).mean()
+            values[i:i + chunk], grad[i:i + chunk] = fold(gt[i:i + chunk],
+                                                          prd[i:i + chunk])
+        return _FoldedMean.apply(pr, values, grad)
 
     def forward(self, data: Dict[str, torch.Tensor],
                 bg_color: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -20,17 +20,23 @@ released metric).
 Inputs are NHWC RGB in [-1, 1], as lgm_tpu's. The convs run in ``dtype``
 (bf16 in training) with f32 parameters; shift/scale and the tap
 normalisation run in f32.
+
+As a training loss LPIPS is frozen and terminal, so a chunk's gradient to
+its prediction can be formed in the forward, while the chunk's
+activations are live (``value_and_grad``); ``GraphedFold`` runs that fold
+at one chunk shape as one replayed CUDA graph.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from lgm_tpu_torch import trace
 from lgm_tpu_torch.models.init import init_like_flax_
 
 # Channel normalisation of the standard LPIPS scaling layer.
@@ -101,6 +107,81 @@ class LPIPS(nn.Module):
             contrib = ((na - nb) ** 2 * w).sum(dim=1)           # [B, H, W]
             total = total + contrib.mean(dim=(1, 2))
         return total
+
+
+def grad_seed(pairs: int, n: int, device) -> torch.Tensor:
+    """The gradient a mean over ``n`` values hands each of a chunk's
+    ``pairs`` values: 1 / n in f32, divided as autograd's mean backward
+    divides it."""
+    return torch.ones(pairs, dtype=torch.float32, device=device).div_(n)
+
+
+def value_and_grad(fn: Callable, a: torch.Tensor, b: torch.Tensor,
+                   seed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(a, b)`` (detached) and the gradient of ``seed · fn(a, b)`` to
+    ``b``: the forward and its VJP in one pass, while the activations are
+    live, so nothing is saved for a later backward or recomputed there."""
+    with torch.enable_grad():
+        b = b.detach().requires_grad_()
+        value = fn(a, b)
+        grad, = torch.autograd.grad(value, b, seed)
+    return value.detach(), grad
+
+
+class GraphedFold:
+    """``value_and_grad(fn, a, b, grad_seed(pairs, n))`` at the shapes of
+    ``a`` and ``b`` (CUDA tensors), captured as one CUDA graph when made
+    and replayed by each call: two copies in and one replay, in place of
+    the fold's launches. A call returns the graph's own output buffers,
+    valid until the next call of any fold captured into the same memory
+    ``pool`` (another fold's ``pool()``; by default a pool of its own):
+    the folds of one pool share their intermediates' memory.
+
+    The graph reads ``fn``'s tensors (LPIPS's f32 parameters and buffers,
+    cast to bf16 inside it) where they lie: an in-place update such as
+    ``copy_`` is seen by the next replay; a tensor replaced by another is
+    not, so its owner drops the graph. The capture follows one warm-up
+    run on a side stream (cuDNN's plans are made there); other threads may
+    use the device meanwhile (a loader pinning memory). Under a profiler
+    each capture and each replay adds 1 to ``lpips.graph_captures`` /
+    ``lpips.graph_replays``."""
+
+    def __init__(self, fn: Callable, a: torch.Tensor, b: torch.Tensor,
+                 n: int, pool=None):
+        self.fn = fn
+        self.a, self.b = a.clone(), b.clone()
+        self.seed = grad_seed(len(b), n, b.device)
+        self.graph = self._capture(pool)
+        trace.add("lpips.graph_captures", 1)
+
+    def _run(self):
+        self.value, self.grad = value_and_grad(self.fn, self.a, self.b,
+                                               self.seed)
+
+    def _capture(self, pool):
+        dev = self.b.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self._run()
+        return graph
+
+    def pool(self):
+        """The memory pool's handle, for the next fold to share."""
+        return self.graph.pool()
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.a.copy_(a)
+        self.b.copy_(b)
+        self.graph.replay()
+        trace.add("lpips.graph_replays", 1)
+        return self.value, self.grad
 
 
 def load_lpips_params(model: LPIPS, npz_path: str) -> None:

@@ -9,10 +9,13 @@ and the CUDA toolkit (``tests/conftest.py`` imports JAX, hence
         tests/test_torch_kernels_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from lgm_tpu_torch.models import lgm as lgm_mod
 from lgm_tpu_torch.ops.gsplat import flatsort as fs
 from lgm_tpu_torch.ops.gsplat import projection as pj
 from lgm_tpu_torch.ops.gsplat import tiled as tt
@@ -1785,3 +1788,153 @@ def test_pipeline_loads_cuda_tensors_as_they_are(cuda):
         for k, v in module.state_dict().items():
             assert v.device.type == "cuda"
             assert torch.equal(v.cpu(), want[k]), (name, k)
+
+
+# LPIPS in the loss as one replayed CUDA graph a chunk
+# (``models/lpips.py::GraphedFold``): LGM big's B x V = 64 pairs, rendered
+# at 512² and resized to 256² in bf16, as in its train step.
+LPIPS_BIG = (8, 8, 512)
+
+
+@pytest.fixture
+def lpips_model(cuda, monkeypatch):
+    """nano's LGMWithLoss in bf16 with LPIPS on (the whole VGG-16 tower,
+    seeded) on the card. cuDNN keeps to its deterministic algorithms, so
+    that two runs of one convolution give the same bits."""
+    from lgm_tpu_torch.config import get_config
+    from lgm_tpu_torch.models.lgm import LGMWithLoss
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    opt = get_config("nano").replace(lambda_lpips=1.0)
+    return LGMWithLoss(opt, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0)).to(cuda)
+
+
+def _lpips_images(cuda, B, V, S, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    pred = torch.rand(B, V, S, S, 3, generator=gen, device=cuda)
+    gt = torch.rand(B, V, S, S, 3, generator=gen, device=cuda)
+    return pred.requires_grad_(), gt
+
+
+def _lpips_loss_and_grad(model, pred, gt, lpips_fn=None):
+    value = (lpips_fn or type(model)._lpips)(model, pred, gt)
+    value.backward()
+    grad, pred.grad = pred.grad, None
+    torch.cuda.synchronize()
+    return value.detach(), grad
+
+
+def _eager_folds(model, monkeypatch):
+    """Make ``model`` run each chunk's fold eagerly, as on the CPU."""
+    from lgm_tpu_torch.models.lpips import grad_seed, value_and_grad
+
+    def eager(gt, pr, n):
+        fn = functools.partial(lgm_mod._lpips_nchw, model.lpips_loss)
+        return functools.partial(value_and_grad, fn,
+                                 seed=grad_seed(len(pr), n, pr.device))
+
+    monkeypatch.setattr(model, "_lpips_graph", eager)
+
+
+def _assert_same(ours, want):
+    assert torch.equal(ours[0], want[0])
+    assert torch.equal(ours[1], want[1])
+
+
+def test_lpips_graph_is_the_eager_fold_bit_for_bit(lpips_model, cuda,
+                                                   monkeypatch):
+    """64 pairs at 256²: the replays give the eager fold's loss and
+    prediction gradient bit for bit, and the checkpointed loop's."""
+    from test_torch_lpips_fold import reference_lpips
+
+    pred, gt = _lpips_images(cuda, *LPIPS_BIG)
+    graphed = _lpips_loss_and_grad(lpips_model, pred, gt)
+    assert len(lpips_model._lpips_graphs) == 1
+    _assert_same(_lpips_loss_and_grad(lpips_model, pred, gt), graphed)
+    ref = _lpips_loss_and_grad(lpips_model, pred, gt, reference_lpips)
+    _eager_folds(lpips_model, monkeypatch)
+    _assert_same(_lpips_loss_and_grad(lpips_model, pred, gt), graphed)
+    _assert_same(ref, graphed)
+    assert graphed[1].abs().max() > 0
+
+
+def test_lpips_second_chunk_shape_captures_a_second_graph(lpips_model,
+                                                          cuda, monkeypatch):
+    from lgm_tpu_torch import trace
+    from torch.profiler import ProfilerActivity, profile
+
+    trace.reset()
+    big = _lpips_images(cuda, *LPIPS_BIG)
+    small = _lpips_images(cuda, 2, 3, 512, seed=1)   # 6 pairs: chunks of 2
+    with profile(activities=[ProfilerActivity.CPU]):
+        ours = [_lpips_loss_and_grad(lpips_model, *x) for x in (big, small)]
+    keys = sorted(k[0] for k in lpips_model._lpips_graphs)
+    assert keys == [(2, 3, 256, 256), (4, 3, 256, 256)]
+    assert trace.counters() == {"lpips.graph_captures": 2,
+                                "lpips.graph_replays": 16 + 3}
+    trace.reset()
+    _eager_folds(lpips_model, monkeypatch)
+    for x, got in zip((big, small), ours):
+        _assert_same(got, _lpips_loss_and_grad(lpips_model, *x))
+
+
+def _pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the memory pool ``pool``."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def test_lpips_graphs_share_one_memory_pool(lpips_model, cuda):
+    """A second key's fold is captured into the first's memory pool: a
+    second fold at LGM big's chunk (8 pairs, another mean) adds its
+    outputs to the pool, not a second chunk's activations."""
+    _lpips_loss_and_grad(lpips_model, *_lpips_images(cuda, *LPIPS_BIG))
+    first, = lpips_model._lpips_graphs.values()
+    one = _pool_bytes(first.pool())
+    assert one > 100 * 2**20, one   # a chunk's VGG activations
+    _lpips_loss_and_grad(lpips_model, *_lpips_images(cuda, 2, 4, 512, seed=1))
+    graphs = list(lpips_model._lpips_graphs.values())
+    assert len(graphs) == 2
+    assert all(g.pool() == first.pool() for g in graphs)
+    assert _pool_bytes(first.pool()) < 1.25 * one
+
+
+def test_lpips_graph_replays_sixteen_a_step_under_the_profiler(lpips_model,
+                                                               cuda):
+    """Once captured, LGM big's LPIPS forward and backward is 16 replays
+    and under 150 host launch calls (the loop it replaced made ~12,000)."""
+    from lgm_tpu_torch import trace
+    from torch.profiler import ProfilerActivity, profile
+
+    pred, gt = _lpips_images(cuda, *LPIPS_BIG)
+    _lpips_loss_and_grad(lpips_model, pred, gt)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _lpips_loss_and_grad(lpips_model, pred, gt)
+    assert trace.counters() == {"lpips.graph_replays": 16}
+    trace.reset()
+    calls = [ev.name() for ev in prof.profiler.kineto_results.events()
+             if ev.name().startswith(("cudaLaunch", "cuLaunch",
+                                      "cudaGraphLaunch", "cudaMemcpy",
+                                      "cudaMemset"))]
+    assert calls.count("cudaGraphLaunch") == 16
+    assert len(calls) < 150, len(calls)
+
+
+def test_lpips_graph_sees_a_parameter_copied_in_place(lpips_model, cuda,
+                                                      monkeypatch):
+    pred, gt = _lpips_images(cuda, *LPIPS_BIG)
+    before = _lpips_loss_and_grad(lpips_model, pred, gt)
+    graph, = lpips_model._lpips_graphs.values()
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for conv in lpips_model.lpips_loss.vgg.values():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                              * conv.weight.std().item())
+    after = _lpips_loss_and_grad(lpips_model, pred, gt)
+    assert list(lpips_model._lpips_graphs.values()) == [graph]
+    assert not torch.equal(after[0], before[0])
+    _eager_folds(lpips_model, monkeypatch)
+    _assert_same(after, _lpips_loss_and_grad(lpips_model, pred, gt))

@@ -1,7 +1,8 @@
 """The program's own trace (``lgm_tpu_torch/trace.py``) on the CPU: the
 ranges of a profiled nano train step and orbit, backward ranges that open
-and close on autograd's thread, nothing built while no profiler runs, and
-the compositors' work counters against ``composite_work``."""
+and close on autograd's thread, nothing built while no profiler runs, the
+compositors' work counters against ``composite_work``, and LPIPS's graph
+counters (on a stand-in graph that reruns the fold eagerly)."""
 
 from collections import Counter
 
@@ -14,6 +15,7 @@ from lgm_tpu_torch import infer, trace, train
 from lgm_tpu_torch.config import get_config
 from lgm_tpu_torch.data.synthetic import make_batch, sample_scene
 from lgm_tpu_torch.ops.gsplat import flatsort as fs
+from test_torch_lpips_fold import EagerGraph
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PER_VIEW = ("render.project", "render.bin", "render.gather",
@@ -120,6 +122,54 @@ def test_untraced_step_builds_no_marker_and_no_counter(nano_step):
         traced["loss"].backward()
     state.model.zero_grad(set_to_none=True)
     assert set(trace._device) == {torch.device("cpu")}
+
+
+def test_lpips_backward_opens_and_closes_in_autograds_pass(nano_step,
+                                                          monkeypatch):
+    """LPIPS's VJP runs in its forward now: ``lpips.backward`` still opens
+    and closes on autograd's thread, inside the backward pass, and holds
+    no convolution (only the scale and the resize's backward), while the
+    range ``lpips`` holds the convolutions' backward."""
+    opt, state, data, bg = nano_step
+    calls = []
+    for name in ("open", "close"):
+        real = getattr(trace.BackwardSpan, name)
+
+        def spy(self, real=real, name=name):
+            if self.name == "lpips.backward":
+                calls.append((name, torch._C._current_graph_task_id()))
+            return real(self)
+
+        monkeypatch.setattr(trace.BackwardSpan, name, spy)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        train.train_step(state, data, bg)
+    assert [c for c, _ in calls] == ["open", "close"]
+    assert all(task >= 0 for _, task in calls)  # inside autograd's pass
+    events = [(ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name())
+              for ev in prof.profiler.kineto_results.events()]
+    (bs, be), = [(s, e) for s, e, m in events if m == "lpips.backward"]
+    (fs_, fe), = [(s, e) for s, e, m in events if m == "lpips"]
+
+    def ops(lo, hi, part):
+        return [m for s, e, m in events
+                if lo <= s and e <= hi and part in m]
+
+    assert ops(bs, be, "convolution") == []
+    assert ops(fs_, fe, "convolution_backward")
+
+
+def test_lpips_graph_counts_captures_and_replays():
+    fn = lambda a, b: (a.float() * b.float()).sum((1, 2, 3))  # noqa: E731
+    a = torch.rand(2, 3, 4, 4).to(torch.bfloat16)
+    graph = EagerGraph(fn, a, a, 4)
+    graph(a, a)
+    assert trace.counters() == {}  # untraced: nothing counted
+    with profile(activities=[ProfilerActivity.CPU]):
+        graph = EagerGraph(fn, a, a, 4)
+        for _ in range(3):
+            graph(a, a)
+    assert trace.counters() == {"lpips.graph_captures": 1,
+                                "lpips.graph_replays": 3}
 
 
 def test_backward_range_is_not_closed_unopened():
